@@ -1,0 +1,5 @@
+from . import layers
+from .resnet import ResNet, Bottleneck, resnet10, resnet50, resnet101, build_backbone
+from .deeplab_v2 import DeepLabV2, ASPPClassifier
+from .flaw_detector import FlawDetector, IBNorm, flaw_detector_criterion
+from .convert import from_jax

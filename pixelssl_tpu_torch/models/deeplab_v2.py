@@ -1,0 +1,61 @@
+"""DeepLab-v2: dilated ResNet + ASPP classifier (counterpart of
+``pixelssl_tpu/models/deeplab_v2.py``), NCHW.
+
+Four parallel 3x3 convs with bias and dilations (6,12,18,24), summed
+(reference task/sseg/module/deeplab_v2.py:71-85), then an
+``align_corners=True`` bilinear resize back to the input size in float32
+(deeplab_v2.py:32). With ``bf16`` the convolutions run under bf16 autocast
+on the card, as the JAX package's default ``--bf16`` runs them; parameters,
+BN statistics and the output stay float32.
+"""
+
+import torch
+import torch.nn as nn
+
+from .layers import resize_bilinear
+from .resnet import build_backbone
+
+
+class ASPPClassifier(nn.Module):
+    def __init__(self, in_channels, num_classes, dilations=(6, 12, 18, 24)):
+        super(ASPPClassifier, self).__init__()
+        self.conv2d_list = nn.ModuleList(
+            nn.Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
+                      bias=True)
+            for d in dilations)
+
+    def init_weights(self, generator=None):
+        with torch.no_grad():
+            for conv in self.conv2d_list:
+                conv.weight.normal_(0.0, 0.01, generator=generator)
+                conv.bias.zero_()
+
+    def forward(self, x):
+        out = self.conv2d_list[0](x)
+        for conv in self.conv2d_list[1:]:
+            out = out + conv(x)
+        return out
+
+
+class DeepLabV2(nn.Module):
+    """Returns (logits at input resolution, backbone feature)."""
+
+    def __init__(self, backbone='resnet101', output_stride=16, num_classes=21,
+                 bf16=False):
+        super(DeepLabV2, self).__init__()
+        self.bf16 = bf16
+        self.backbone = build_backbone(backbone, output_stride)
+        self.classifier = ASPPClassifier(2048, num_classes)
+
+    def init_weights(self, generator=None):
+        self.backbone.init_weights(generator)
+        self.classifier.init_weights(generator)
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.bf16):
+            bx = self.backbone(x)
+            logits = self.classifier(bx)
+        logits = resize_bilinear(logits.float(), x.shape[2:],
+                                 align_corners=True)
+        return logits, bx

@@ -1,0 +1,125 @@
+"""Dilated multi-grid ResNet-50/101 backbone (counterpart of
+``pixelssl_tpu/models/resnet.py``), NCHW.
+
+Same topology as the reference (task/sseg/module/backbone/resnet.py:13-174):
+7x7 stem and a 3/2/1 max-pool, bottleneck stages [3,4,{6,23},3] with the
+stride on the 3x3 conv, output stride 16 via strides (1,2,2,1) and
+dilations (1,1,1,2) (8 via (1,2,1,1) and (1,1,2,4)), and the multi-grid
+unit (1,2,4) in layer4. Module names follow the reference's state dict
+(conv1/bn1/layerX.Y/downsample.{0,1}).
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import SyncBatchNorm
+
+
+def conv_init_(conv, generator=None):
+    """normal(0, sqrt(2/n)), n = kh*kw*out_channels (reference _init_weight;
+    the JAX package's fan-out variance scaling)."""
+    kh, kw = conv.kernel_size
+    std = math.sqrt(2.0 / (kh * kw * conv.out_channels))
+    with torch.no_grad():
+        conv.weight.normal_(0.0, std, generator=generator)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (dilated, strided) -> 1x1 (reference resnet.py:13-50)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1,
+                 has_downsample=False):
+        super(Bottleneck, self).__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = SyncBatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                               padding=dilation, dilation=dilation, bias=False)
+        self.bn2 = SyncBatchNorm(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = SyncBatchNorm(planes * 4)
+        self.downsample = None
+        if has_downsample:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+                SyncBatchNorm(planes * 4))
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNet(nn.Module):
+    """Dilated multi-grid ResNet trunk returning the layer4 feature map."""
+
+    def __init__(self, layers, output_stride=16, multi_grid=(1, 2, 4)):
+        super(ResNet, self).__init__()
+        if output_stride == 16:
+            strides, dilations = (1, 2, 2, 1), (1, 1, 1, 2)
+        elif output_stride == 8:
+            strides, dilations = (1, 2, 1, 1), (1, 1, 2, 4)
+        else:
+            raise NotImplementedError(
+                'output_stride must be 8 or 16, got {0}'.format(output_stride))
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = SyncBatchNorm(64)
+
+        inplanes = 64
+        for stage, planes in enumerate((64, 128, 256, 512)):
+            if stage < 3:
+                grids = [1] * layers[stage]
+            else:
+                grids = list(multi_grid)
+            blocks = []
+            for b, grid in enumerate(grids):
+                stride = strides[stage] if b == 0 else 1
+                has_ds = b == 0 and (stride != 1 or inplanes != planes * 4)
+                blocks.append(Bottleneck(inplanes, planes, stride=stride,
+                                         dilation=grid * dilations[stage],
+                                         has_downsample=has_ds))
+                inplanes = planes * 4
+            setattr(self, 'layer{0}'.format(stage + 1), nn.Sequential(*blocks))
+
+    def init_weights(self, generator=None):
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                conv_init_(m, generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        return self.layer4(x)
+
+
+def resnet50(output_stride):
+    return ResNet((3, 4, 6, 3), output_stride)
+
+
+def resnet101(output_stride):
+    return ResNet((3, 4, 23, 3), output_stride)
+
+
+def resnet10(output_stride):
+    """One block per stage: the test size (no reference analog)."""
+    return ResNet((1, 1, 1, 1), output_stride)
+
+
+def build_backbone(name, output_stride):
+    name = name.split('-')[0]  # 'resnet101-coco' -> 'resnet101'
+    builders = {'resnet10': resnet10, 'resnet50': resnet50,
+                'resnet101': resnet101}
+    if name not in builders:
+        raise ValueError('Unsupported backbone: {0}'.format(name))
+    return builders[name](output_stride)

@@ -1,0 +1,175 @@
+"""Fused separable Gaussian blur (counterpart of
+``pixelssl_tpu/ops/blur_pallas.py``).
+
+``gaussian_blur_fused`` blurs [N,H,W,1] maps with the reference's taps and
+the reflect boundary, ``out[n] = Bh @ X[n] @ Bw^T``, computed in float32:
+
+* on a CUDA tensor it launches the hand-written Hopper kernel
+  ``csrc/blur.cu`` (the port of the TPU kernel ``_blur_kernel``), built by
+  ``nvcc`` for ``sm_90a`` into the package's ``build/`` directory the first
+  time it is needed, and bound through ctypes;
+* on a CPU tensor it runs the plain version ``blur_plain``: the two dense
+  banded products from ``_blur_matrix``, as the JAX einsum branch does.
+
+Nothing falls back: a CUDA tensor that meets a failed build or launch
+raises. ``launches`` counts the kernel's launches.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import numpy as np
+import torch
+
+from ..nn.module.gaussian_blur import gaussian_kernel_1d
+
+MAX_KERNEL_SIZE = 129  # csrc/blur.cu kMaxHalf = 64
+_MAX_GRID_Z = 65535
+
+launches = 0
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, 'csrc', 'blur.cu')
+_BUILD_DIR = os.path.join(_PKG_DIR, 'build')
+_lib = None
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrix(size, kernel_size):
+    """[size, size] matrix equal to reflect padding + the 1-D blur.
+
+    The boundary is ``jnp.pad(mode='reflect')``'s, where the edge is not
+    repeated (-1 -> 1, size -> size-2), applied again until the index is
+    inside the map; the taps' own folding (``_reflect_idx``) repeats the
+    edge instead. The two conventions meet in this one function."""
+    g = gaussian_kernel_1d(kernel_size)
+    k = kernel_size
+    half = k // 2
+    m = np.zeros((size, size), dtype=np.float32)
+    for i in range(size):
+        for t in range(k):
+            j = i - half + t
+            while j < 0 or j >= size:
+                if j < 0:
+                    j = -j
+                if j >= size:
+                    j = 2 * (size - 1) - j
+            m[i, j] += g[t]
+    return m
+
+
+def blur_plain(x, kernel_size):
+    """Plain PyTorch version of the kernel on [N,H,W] float32:
+    ``Bh @ X @ Bw^T`` with the dense banded matrices."""
+    _, h, w = x.shape
+    k = int(kernel_size)
+    bh = torch.from_numpy(_blur_matrix(h, k)).to(x.device)
+    bw = torch.from_numpy(_blur_matrix(w, k)).to(x.device)
+    return torch.matmul(torch.matmul(bh, x), bw.t())
+
+
+def _nvcc():
+    cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
+        or '/usr/local/cuda'
+    path = os.path.join(cuda_home, 'bin', 'nvcc')
+    if os.path.exists(path):
+        return path
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH '
+                           'to build csrc/blur.cu')
+    return found
+
+
+def build():
+    """Compile ``csrc/blur.cu`` for sm_90a (once per source content) and
+    load it; returns the ctypes library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with open(_SRC, 'rb') as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so = os.path.join(_BUILD_DIR, 'libpixelssl_blur_{0}.so'.format(digest))
+    if not os.path.exists(so):
+        nvcc = _nvcc()
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                 '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+                 '-o', tmp, _SRC], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed to build {0}:\n{1}{2}'.format(
+                    _SRC, proc.stdout, proc.stderr))
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(so)
+    lib.pixelssl_blur_band.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pixelssl_blur_band.restype = ctypes.c_int
+    lib.pixelssl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pixelssl_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(kernel_size, device):
+    return torch.from_numpy(gaussian_kernel_1d(kernel_size)).to(device)
+
+
+def blur_kernel(x, kernel_size):
+    """Launch ``csrc/blur.cu`` on a contiguous [N,H,W] float32 CUDA tensor,
+    on the current stream; returns a new [N,H,W] tensor."""
+    global launches
+    k = int(kernel_size)
+    if not x.is_cuda:
+        raise ValueError('blur_kernel needs a CUDA tensor')
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError('blur_kernel needs a contiguous [N,H,W] float32 '
+                         'tensor, got {0} {1}'.format(x.dtype, tuple(x.shape)))
+    n, h, w = x.shape
+    if k % 2 != 1 or not 1 <= k <= MAX_KERNEL_SIZE:
+        raise ValueError('kernel_size must be odd and at most {0}, got {1}'
+                         .format(MAX_KERNEL_SIZE, k))
+    if h < 2 or w < 2 or n > _MAX_GRID_Z:
+        raise ValueError('blur_kernel needs H, W >= 2 and N <= {0}, got {1}'
+                         .format(_MAX_GRID_Z, tuple(x.shape)))
+    lib = build()
+    taps = _device_taps(k, x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.pixelssl_blur_band(x.data_ptr(), out.data_ptr(),
+                                  taps.data_ptr(), n, h, w, k, stream)
+    if code != 0:
+        raise RuntimeError('blur kernel launch failed: {0}'.format(
+            lib.pixelssl_cuda_error_string(code).decode()))
+    launches += 1
+    return out
+
+
+def gaussian_blur_fused(x, kernel_size):
+    """Blur [N,H,W,1] maps with the reference's taps; returns x's dtype,
+    computed in float32. CUDA tensors go through the kernel, CPU tensors
+    through ``blur_plain``."""
+    if x.dim() != 4 or x.shape[-1] != 1:
+        raise ValueError('fused blur is specialized for single-channel maps')
+    xf = x[..., 0].float().contiguous()
+    if xf.is_cuda:
+        out = blur_kernel(xf, kernel_size)
+    elif xf.device.type == 'cpu':
+        out = blur_plain(xf, kernel_size)
+    else:
+        raise ValueError('gaussian_blur_fused: unsupported device {0}'
+                         .format(xf.device))
+    return out[..., None].to(x.dtype)

@@ -1,0 +1,43 @@
+"""Task model contract (counterpart of
+``pixelssl_tpu/task_template/model.py``; reference
+pixelssl/task_template/model.py:17-85).
+
+A task model is an ``nn.Module`` whose ``forward(inp_tuple)`` returns a
+``resulter`` dict with at least ``'pred'`` (tuple of raw outputs) and
+``'activated_pred'`` (tuple of activated outputs), NCHW. The reference's
+param groups (backbone 1x lr, heads 10x) are ``lr_mult_spec`` rules on
+parameter names; ``param_groups()`` turns them into optimizer groups that
+carry their ``lr_mult``.
+"""
+
+import torch.nn as nn
+
+
+class TaskModel(nn.Module):
+    """Subclasses set ``self.net`` and may override ``lr_mult_spec``: a list
+    of ``(name_substring, multiplier)`` rules, first match wins, default
+    1.0."""
+
+    lr_mult_spec = ()
+
+    def __init__(self, args):
+        super(TaskModel, self).__init__()
+        self.args = args
+
+    def init_weights(self, generator=None):
+        self.net.init_weights(generator)
+
+    def lr_mult(self, name):
+        for substr, mult in self.lr_mult_spec:
+            if substr in name:
+                return float(mult)
+        return 1.0
+
+    def param_groups(self):
+        """One optimizer group per distinct multiplier, in first-seen order."""
+        groups = {}
+        for name, p in self.named_parameters():
+            mult = self.lr_mult(name)
+            groups.setdefault(mult, []).append(p)
+        return [{'params': ps, 'lr_mult': m} for m, ps in groups.items()]
+

@@ -1,0 +1,3 @@
+"""Version metadata of the PyTorch/CUDA port."""
+
+__version__ = '0.1.0'

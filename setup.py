@@ -10,7 +10,9 @@ setup(
     description='TPU-native toolbox for semi-supervised pixel-wise vision '
                 'tasks (JAX/XLA/pallas rebuild of the PixelSSL capabilities)',
     license='MIT',
-    packages=find_packages(include=['pixelssl_tpu', 'pixelssl_tpu.*']),
+    packages=find_packages(include=['pixelssl_tpu', 'pixelssl_tpu.*',
+                                    'pixelssl_tpu_torch',
+                                    'pixelssl_tpu_torch.*']),
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy', 'pyyaml',
