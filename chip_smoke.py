@@ -8,10 +8,16 @@ Phases, each printing a line as it ends:
 1. the card: its name and power limit as ``nvidia-smi`` gives them;
 2. builds ``pixelssl_tpu_torch/csrc/blur.cu`` with ``nvcc`` for sm_90a;
 3. holds the blur kernel against its plain PyTorch version in float32 at
-   the three shapes of the GCT step at 321 px, a non-square map and a map
-   smaller than half the kernel (repeated reflection): max abs error
+   the three shapes of the GCT step at 321 px, a non-square map, a map
+   smaller than half the kernel (repeated reflection), the 513 px recipe's
+   widest blur and a map one past the kernel's tiles: max abs error
    <= 1e-5; times the kernel, the plain version and one cuBLAS form of the
-   same product (``library_ms``, a yardstick the port never calls);
+   same product (``library_ms``, a yardstick the port never calls) with
+   CUDA events around 50 calls from Python (``ms``, host overhead
+   included), and the kernel and the cuBLAS form again as device time
+   (``device_ms``, ``library_device_ms``): 20 calls captured in one CUDA
+   graph, its replay timed between events, beside the same graph's time
+   for one one-element ``torch.add`` (the launch floor);
 4. one GCT step of the port at a small size (ResNet-10, 96 px, float32)
    on the card and on the CPU from the same weights and batch: the losses
    must agree (rtol 2e-3 on task/FD losses, 2e-2 on the thresholded fc/dc);
@@ -45,9 +51,12 @@ STEPS = 3
 
 # (N, H, W, k): the GCT step's calls at 321 px (ssl_gct.py flawmap_handler
 # k=odd(321/16), fdgt_generator k=odd(321/8) and odd(321/4)), then a
-# non-square map and a map with k//2 >= H
+# non-square map, a map with k//2 >= H, the widest blur at 513 px
+# (k=odd(513/4)) and a map one row and one column past the kernel's tiles
 MAIN_PATH_CASES = [(8, 321, 321, 21), (4, 321, 321, 41), (4, 321, 321, 81)]
-EXTRA_CASES = [(3, 200, 321, 41), (2, 20, 24, 81)]
+EXTRA_CASES = [(3, 200, 321, 41), (2, 20, 24, 81), (2, 513, 513, 129),
+               (1, 65, 33, 21)]
+GRAPH_CALLS = 20
 
 
 def say(*parts):
@@ -67,6 +76,34 @@ def time_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=GRAPH_CALLS, replays=10):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, its replay timed between events. The host's Python,
+    ctypes and dispatch run once, at capture, and not in the timed
+    replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def blur_bound_terms_ms(n, h, w, k):
@@ -110,6 +147,10 @@ def phase_kernel(seed):
     import torch
     from pixelssl_tpu_torch.ops import blur
 
+    one = torch.ones(1, device='cuda')
+    floor_ms = graph_ms(lambda: torch.add(one, one))
+    say('[3/5] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+        '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
     for n, h, w, k in MAIN_PATH_CASES + EXTRA_CASES:
@@ -127,20 +168,25 @@ def phase_kernel(seed):
             'plain_ms': time_ms(lambda: blur.blur_plain(x, k)),
             'library_ms': time_ms(
                 lambda: torch.matmul(torch.matmul(bh, x), bw.t())),
+            'device_ms': graph_ms(lambda: blur.blur_kernel(x, k)),
+            'library_device_ms': graph_ms(
+                lambda: torch.matmul(torch.matmul(bh, x), bw.t())),
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
         say('[3/5] blur [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
-            'bound_ms {8:.4f} ({9})'.format(
+            'device_ms {8:.5f}  library_device_ms {9:.5f}  '
+            'bound_ms {10:.5f} ({11})'.format(
                 n, h, w, k, err, row['ms'], row['plain_ms'],
-                row['library_ms'], row['bound_ms'], row['bound_by']))
+                row['library_ms'], row['device_ms'],
+                row['library_device_ms'], row['bound_ms'], row['bound_by']))
         if not err <= KERNEL_TOL:
             raise AssertionError('blur kernel disagrees with its plain '
                                  'version at {0}: {1} > {2}'.format(
                                      (n, h, w, k), err, KERNEL_TOL))
         rows.append(row)
-    return rows
+    return rows, floor_ms
 
 
 GCT_CONFIG = dict(
@@ -271,7 +317,7 @@ def main(argv=None):
     try:
         card = phase_device()
         phase_build()
-        rows = phase_kernel(opts.seed)
+        rows, floor_ms = phase_kernel(opts.seed)
         phase_small_reference(opts.seed)
         launches = phase_main_path(opts.seed, STEPS)
     except Exception:  # report which phase failed, print no result
@@ -283,7 +329,8 @@ def main(argv=None):
     # shape; its bound is that of the six calls' bytes and operations
     main_rows = rows[:len(MAIN_PATH_CASES)]
     per_step = {key: 2 * sum(r[key] for r in main_rows)
-                for key in ('ms', 'plain_ms', 'library_ms')}
+                for key in ('ms', 'plain_ms', 'library_ms', 'device_ms',
+                            'library_device_ms')}
     terms = [blur_bound_terms_ms(*case) for case in MAIN_PATH_CASES]
     bound_ms, bound_by = bound(2 * sum(t[0] for t in terms),
                                2 * sum(t[1] for t in terms))
@@ -299,6 +346,9 @@ def main(argv=None):
         'bound_ms': bound_ms,
         'bound_by': bound_by,
         'library_ms': per_step['library_ms'],
+        'device_ms': per_step['device_ms'],
+        'library_device_ms': per_step['library_device_ms'],
+        'launch_floor_ms': floor_ms,
         'per': 'one GCT step at 321 px: 2x each of the calls in calls',
         'calls': rows,
     }

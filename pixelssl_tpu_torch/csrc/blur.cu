@@ -6,8 +6,8 @@
 // by _blur_matrix. Here the band is indexed directly: row i of Bh holds the
 // k taps g[t] at columns reflect(i - k/2 + t), so
 //
-//   out[n, i, j] = sum_t g[t] * V[n, i, reflect(j - k/2 + t)]
 //   V[n, i, c]   = sum_t g[t] * X[n, reflect(i - k/2 + t), c]
+//   out[n, i, j] = sum_t g[t] * V[n, i, reflect(j - k/2 + t)]
 //
 // with the boundary of jnp.pad(mode='reflect'): the edge is not repeated
 // (-1 -> 1, size -> size-2), applied again until the index is inside the
@@ -15,106 +15,177 @@
 //
 // Bound on the H100: each map is read once and written once (2*N*H*W*4
 // bytes) and the band form does 2*N*H*W*2k flops; at the GCT shapes
-// ([8,321,321] k=21, [4,321,321] k=41/81) both bounds are one or two
-// microseconds, under a launch's overhead. A 321x321 fp32 map (412 KB)
-// does not fit one block's 227 KB of shared memory as it did in VMEM, so
-// the design tiles the output instead: one block per 32x32 output tile of
-// one map; a vertical pass reads the input rows through reflected row
-// offsets (kept in shared memory) into a shared TILE x (TILE + 2*half)
-// strip of V, then a horizontal pass reads the strip. The time goes to load
-// instructions, not to bytes: each thread computes 4 consecutive rows, so
-// one load (or one tap) feeds 4 multiply-adds. fp32 accumulation, no dense
-// matrix, no tensor cores.
+// ([8,321,321] k=21, [4,321,321] k=41/81) both are one or two microseconds,
+// near the cost of a launch. The design computes each of V and out exactly
+// once, in two launches of one-dimensional reflected convolutions:
+//
+// * pass V: a block owns kLines columns by kSeg output rows of one map. It
+//   copies the (kSeg + k - 1) reflected input rows of its columns into a
+//   shared strip with cp.async (reflection is applied to the row index
+//   while loading, so the strip is contiguous), and each thread computes
+//   kRun consecutive rows of one column;
+// * pass H: a block owns kLines rows by kSeg output columns of V and copies
+//   the (kSeg + k - 1) reflected columns of its rows into a strip whose row
+//   pitch is odd, so the 32 rows a warp reads lie in 32 banks; each thread
+//   computes kRun consecutive columns of one row, and the block's results
+//   go back through the strip so that they leave in coalesced row segments.
+//
+// In both passes a thread slides a kRun-value register window along its
+// line: one shared-memory load of the strip and one broadcast tap load feed
+// kRun fp32 multiply-adds, and the halo costs loads, never arithmetic. V
+// goes through device memory between the passes (1.6-3.3 MB at the GCT
+// shapes, resident in the 50 MB L2). fp32 throughout, no tensor cores.
+// What is left of the time is moving the strips and the launches, not the
+// arithmetic: a copy of this kernel that skips the multiply-adds takes most
+// of its time (PERF.md). Rows of 321 floats are not 16-byte aligned, so the
+// copies go 4 bytes a thread.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;          // output tile is kTile x kTile
-constexpr int kRowsPerIt = 8;      // blockDim.y
-constexpr int kRowsPerThread = kTile / kRowsPerIt;
-constexpr int kMaxHalf = 64;   // kernel_size <= 129
+constexpr int kMaxHalf = 64;  // kernel_size <= 129
 constexpr int kMaxTaps = 2 * kMaxHalf + 1;
-constexpr int kStrip = kTile + 2 * kMaxHalf;
+constexpr int kRun = 8;       // outputs a thread computes along its line
+constexpr int kLines = 32;    // threadIdx.x: one column (V) or row (H)
+constexpr int kGroups = 8;    // threadIdx.y: runs along the line
+constexpr int kSeg = kRun * kGroups;  // outputs a block computes per line
+constexpr int kThreads = kLines * kGroups;
 
 // jnp.pad 'reflect' applied until in range; n >= 2. The fold has period
 // 2*(n-1): -1 -> 1, n -> n-2.
 __device__ __forceinline__ int reflect_index(int j, int n) {
+  if (j >= 0 && j < n) return j;
   const int period = 2 * (n - 1);
   j %= period;
   if (j < 0) j += period;
   return j < n ? j : period - j;
 }
 
-__global__ void __launch_bounds__(kTile * kRowsPerIt)
-blur_band_kernel(const float* __restrict__ x, float* __restrict__ out,
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// acc[j] = sum_t taps[t] * line[(j + t) * stride], j < kRun. The window is
+// a ring of registers whose slots the unrolled loop names statically, so
+// sliding it moves no data.
+__device__ __forceinline__ void slide(const float* line, int stride,
+                                      const float* taps, int k,
+                                      float (&acc)[kRun]) {
+  float win[kRun];
+#pragma unroll
+  for (int q = 0; q + 1 < kRun; ++q) win[q] = line[q * stride];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) acc[j] = 0.f;
+  int t0 = 0;
+  for (; t0 + kRun <= k; t0 += kRun) {
+#pragma unroll
+    for (int u = 0; u < kRun; ++u) {
+      win[(u + kRun - 1) % kRun] = line[(t0 + u + kRun - 1) * stride];
+      const float g = taps[t0 + u];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j)
+        acc[j] = fmaf(g, win[(u + j) % kRun], acc[j]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kRun; ++u) {
+    if (t0 + u < k) {
+      win[(u + kRun - 1) % kRun] = line[(t0 + u + kRun - 1) * stride];
+      const float g = taps[t0 + u];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j)
+        acc[j] = fmaf(g, win[(u + j) % kRun], acc[j]);
+    }
+  }
+}
+
+// Pass V. Grid (ceil(w / kLines), ceil(h / kSeg), n); dynamic shared
+// memory: kMaxTaps + (kSeg + k - 1) * kLines floats.
+__global__ void __launch_bounds__(kThreads)
+blur_pass_v_kernel(const float* __restrict__ x, float* __restrict__ v,
                  const float* __restrict__ taps, int h, int w, int k) {
-  __shared__ float s_taps[kMaxTaps];
-  __shared__ int s_row[kTile + 2 * kMaxHalf];  // reflected row * w
-  __shared__ int s_col[kStrip];                // reflected column
-  __shared__ float s_v[kTile][kStrip];
+  extern __shared__ float smem[];
+  float* s_taps = smem;
+  float* s_x = smem + kMaxTaps;  // [kSeg + k - 1][kLines]
 
   const int half = k / 2;
-  const int strip = kTile + 2 * half;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
+  const int rows = kSeg + k - 1;
+  const int r0 = blockIdx.y * kSeg;
+  const int c = blockIdx.x * kLines + threadIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.z) * h * w;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kRowsPerIt;
+  const int tid = threadIdx.y * kLines + threadIdx.x;
 
-  for (int t = tid; t < k; t += nthreads) s_taps[t] = taps[t];
-  for (int q = tid; q < strip; q += nthreads) {
-    s_row[q] = reflect_index(r0 - half + q, h) * w;
-    s_col[q] = reflect_index(c0 - half + q, w);
-  }
+  for (int t = tid; t < k; t += kThreads) cp_async_f32(s_taps + t, taps + t);
+  // columns past the edge load the last column and are never stored
+  const float* xc = x + base + min(c, w - 1);
+  for (int q = threadIdx.y; q < rows; q += kGroups)
+    cp_async_f32(s_x + q * kLines + threadIdx.x,
+                 xc + static_cast<size_t>(reflect_index(r0 - half + q, h)) * w);
+  cp_async_wait_all();
   __syncthreads();
 
-  // vertical pass: V rows r0..r0+kTile-1 at the strip's reflected columns.
-  // A thread computes kRowsPerThread consecutive rows and slides a window
-  // of input values down the column: one load feeds kRowsPerThread
-  // multiply-adds. Rows past the map's edge are computed (their reflected
-  // indices are valid) and never stored.
-  const float* xm = x + base;
-  const int rb = threadIdx.y * kRowsPerThread;
-  for (int p = threadIdx.x; p < strip; p += kTile) {
-    const int col = s_col[p];
-    float win[kRowsPerThread];
-    float acc[kRowsPerThread];
+  const int rb = threadIdx.y * kRun;
+  if (c >= w || r0 + rb >= h) return;
+  float acc[kRun];
+  slide(s_x + rb * kLines + threadIdx.x, kLines, s_taps, k, acc);
+  float* vc = v + base + c;
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      win[j] = xm[s_row[rb + j] + col];
-      acc[j] = 0.f;
-    }
-    for (int t = 0; t < k; ++t) {
-      const float g = s_taps[t];
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) acc[j] += g * win[j];
-#pragma unroll
-      for (int j = 0; j + 1 < kRowsPerThread; ++j) win[j] = win[j + 1];
-      if (t + 1 < k) win[kRowsPerThread - 1] =
-          xm[s_row[rb + t + kRowsPerThread] + col];
-    }
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) s_v[rb + j][p] = acc[j];
-  }
-  __syncthreads();
-
-  // horizontal pass from the strip; each tap is read once for the rows
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.f;
-  for (int t = 0; t < k; ++t) {
-    const float g = s_taps[t];
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j)
-      acc[j] += g * s_v[rb + j][threadIdx.x + t];
-  }
-  const int c = c0 + threadIdx.x;
-  if (c >= w) return;
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
+  for (int j = 0; j < kRun; ++j) {
     const int r = r0 + rb + j;
-    if (r < h) out[base + static_cast<size_t>(r) * w + c] = acc[j];
+    if (r < h) vc[static_cast<size_t>(r) * w] = acc[j];
+  }
+}
+
+// Pass H. Grid (ceil(w / kSeg), ceil(h / kLines), n); dynamic shared
+// memory: kMaxTaps + kLines * pitch floats, pitch = (kSeg + k - 1) | 1.
+__global__ void __launch_bounds__(kThreads)
+blur_pass_h_kernel(const float* __restrict__ v, float* __restrict__ out,
+                 const float* __restrict__ taps, int h, int w, int k) {
+  extern __shared__ float smem[];
+  float* s_taps = smem;
+  float* s_v = smem + kMaxTaps;  // [kLines][pitch]
+
+  const int half = k / 2;
+  const int cols = kSeg + k - 1;
+  const int pitch = cols | 1;  // odd: a warp's 32 rows hit 32 banks
+  const int r0 = blockIdx.y * kLines;
+  const int c0 = blockIdx.x * kSeg;
+  const size_t base = static_cast<size_t>(blockIdx.z) * h * w;
+  const int tid = threadIdx.y * kLines + threadIdx.x;
+
+  for (int t = tid; t < k; t += kThreads) cp_async_f32(s_taps + t, taps + t);
+  // a warp copies 32 neighbouring columns of one row; rows past the edge
+  // load the last row and are never stored
+  for (int q = threadIdx.x; q < cols; q += kLines) {
+    const float* vq = v + base + reflect_index(c0 - half + q, w);
+    for (int i = threadIdx.y; i < kLines; i += kGroups)
+      cp_async_f32(s_v + i * pitch + q,
+                   vq + static_cast<size_t>(min(r0 + i, h - 1)) * w);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // a warp's threads lie in 32 rows, so its results go back through the
+  // strip (same odd pitch) and leave the block in coalesced row segments
+  const int cb = threadIdx.y * kRun;
+  float acc[kRun] = {};
+  if (r0 + static_cast<int>(threadIdx.x) < h && c0 + cb < w)
+    slide(s_v + threadIdx.x * pitch + cb, 1, s_taps, k, acc);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) s_v[threadIdx.x * pitch + cb + j] = acc[j];
+  __syncthreads();
+  for (int i = threadIdx.y; i < kLines && r0 + i < h; i += kGroups) {
+    float* orow = out + base + static_cast<size_t>(r0 + i) * w;
+    for (int q = threadIdx.x; q < kSeg && c0 + q < w; q += kLines)
+      orow[c0 + q] = s_v[i * pitch + q];
   }
 }
 
@@ -122,16 +193,27 @@ blur_band_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 extern "C" {
 
-// x, out: [n, h, w] contiguous fp32 on the device; taps: [k] fp32 on the
-// device. Needs h, w >= 2 and an odd k <= 129 (the wrapper checks). Launches
-// on `stream` and returns cudaGetLastError() as an int (0 = success).
-int pixelssl_blur_band(const float* x, float* out, const float* taps, int n,
-                       int h, int w, int k, void* stream) {
+// x, out, scratch: [n, h, w] contiguous fp32 on the device (scratch holds
+// V between the passes); taps: [k] fp32 on the device. Needs h, w >= 2 and
+// an odd k <= 129 (the wrapper checks). Launches both passes on `stream`
+// and returns cudaGetLastError() as an int (0 = success).
+int pixelssl_blur_band(const float* x, float* out, float* scratch,
+                       const float* taps, int n, int h, int w, int k,
+                       void* stream) {
   if (n <= 0) return 0;
-  const dim3 block(kTile, kRowsPerIt);
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, n);
-  blur_band_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, taps, h, w, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kLines, kGroups);
+  const size_t smem_v = sizeof(float) * (kMaxTaps + (kSeg + k - 1) * kLines);
+  const dim3 grid_v((w + kLines - 1) / kLines, (h + kSeg - 1) / kSeg, n);
+  blur_pass_v_kernel<<<grid_v, block, smem_v, s>>>(x, scratch, taps, h, w,
+                                                   k);
+  int code = static_cast<int>(cudaGetLastError());
+  if (code != 0) return code;
+  const size_t smem_h =
+      sizeof(float) * (kMaxTaps + kLines * ((kSeg + k - 1) | 1));
+  const dim3 grid_h((w + kSeg - 1) / kSeg, (h + kLines - 1) / kLines, n);
+  blur_pass_h_kernel<<<grid_h, block, smem_h, s>>>(scratch, out, taps, h,
+                                                   w, k);
   return static_cast<int>(cudaGetLastError());
 }
 

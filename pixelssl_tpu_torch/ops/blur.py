@@ -7,12 +7,19 @@ the reflect boundary, ``out[n] = Bh @ X[n] @ Bw^T``, computed in float32:
 * on a CUDA tensor it launches the hand-written Hopper kernel
   ``csrc/blur.cu`` (the port of the TPU kernel ``_blur_kernel``), built by
   ``nvcc`` for ``sm_90a`` into the package's ``build/`` directory the first
-  time it is needed, and bound through ctypes;
+  time it is needed, and bound through ctypes. One call runs two passes of
+  one-dimensional reflected convolutions, each computing its outputs once
+  from a shared-memory strip that holds the halo: down the columns into a
+  scratch map V (it stays in the card's L2), then along the rows of V into
+  the output. A call's least time is a microsecond or two at the GCT
+  shapes (each map read and written once, 2k multiply-adds per pixel);
+  the kernel's time goes mostly to copying the strips and to its two
+  launches, not to the arithmetic;
 * on a CPU tensor it runs the plain version ``blur_plain``: the two dense
   banded products from ``_blur_matrix``, as the JAX einsum branch does.
 
 Nothing falls back: a CUDA tensor that meets a failed build or launch
-raises. ``launches`` counts the kernel's launches.
+raises. ``launches`` counts the kernel's calls (one call, two passes).
 """
 
 import ctypes
@@ -86,13 +93,10 @@ def _nvcc():
     return found
 
 
-def build():
-    """Compile ``csrc/blur.cu`` for sm_90a (once per source content) and
-    load it; returns the ctypes library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with open(_SRC, 'rb') as f:
+def compile_source(src=_SRC):
+    """Compile a blur source for sm_90a into ``build/`` (once per source
+    content); returns the path of the shared library."""
+    with open(src, 'rb') as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
     os.makedirs(_BUILD_DIR, exist_ok=True)
     so = os.path.join(_BUILD_DIR, 'libpixelssl_blur_{0}.so'.format(digest))
@@ -104,18 +108,28 @@ def build():
             proc = subprocess.run(
                 [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
                  '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-                 '-o', tmp, _SRC], capture_output=True, text=True)
+                 '-o', tmp, src], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError('nvcc failed to build {0}:\n{1}{2}'.format(
-                    _SRC, proc.stdout, proc.stderr))
+                    src, proc.stdout, proc.stderr))
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    return so
+
+
+def build():
+    """Compile ``csrc/blur.cu`` and load it; returns the ctypes library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = compile_source()
     lib = ctypes.CDLL(so)
     lib.pixelssl_blur_band.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.pixelssl_blur_band.restype = ctypes.c_int
     lib.pixelssl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pixelssl_cuda_error_string.restype = ctypes.c_char_p
@@ -148,9 +162,11 @@ def blur_kernel(x, kernel_size):
     lib = build()
     taps = _device_taps(k, x.device)
     out = torch.empty_like(x)
+    scratch = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.pixelssl_blur_band(x.data_ptr(), out.data_ptr(),
-                                  taps.data_ptr(), n, h, w, k, stream)
+                                  scratch.data_ptr(), taps.data_ptr(), n, h,
+                                  w, k, stream)
     if code != 0:
         raise RuntimeError('blur kernel launch failed: {0}'.format(
             lib.pixelssl_cuda_error_string(code).decode()))

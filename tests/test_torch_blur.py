@@ -23,9 +23,16 @@ from pixelssl_tpu_torch.ops import blur as torch_blur
 jax_gb = importlib.import_module('pixelssl_tpu.nn.module.gaussian_blur')
 torch_gb = importlib.import_module('pixelssl_tpu_torch.nn.module.gaussian_blur')
 
-# (N, H, W, k): k//2 >= H in the last case, where the reflect boundary is
-# applied more than once
-SHAPES = [(2, 33, 33, 5), (2, 33, 33, 9), (2, 48, 64, 17), (3, 20, 20, 41)]
+# (N, H, W, k): k//2 >= H in the fourth and fifth cases and at 2x2, where
+# the reflect boundary is applied more than once. After the first four come
+# the shapes that tests/test_torch_blur_kernel.py and chip_smoke.py hold the
+# CUDA kernel to (the GCT step's at 321 px, the edges of the kernel's tiles,
+# the 513 px recipe's widest blur, k = 1), so the JAX package backs each
+SHAPES = [(2, 33, 33, 5), (2, 33, 33, 9), (2, 48, 64, 17), (3, 20, 20, 41),
+          (2, 20, 24, 81), (8, 321, 321, 21), (4, 321, 321, 41),
+          (4, 321, 321, 81), (3, 200, 321, 41), (2, 2, 2, 5),
+          (1, 65, 33, 21), (1, 33, 65, 9), (2, 20, 70, 11), (3, 97, 40, 15),
+          (2, 513, 513, 129), (2, 33, 33, 1)]
 
 
 def _maps(n, h, w, seed):

@@ -16,9 +16,14 @@ import torch
 from pixelssl_tpu_torch.ops import blur as torch_blur
 
 # (N, H, W, k): small maps, one with k//2 >= H (repeated reflection), and
-# the GCT step's shapes at 321 px
+# the GCT step's shapes at 321 px; then the edges of the kernel's tiles
+# (pass V: 32 columns by 64 rows, pass H: 32 rows by 64 columns): the
+# smallest map, N = 1 with one row and one column past a tile, maps wider
+# and taller than square, the 513 px recipe's widest blur, and k = 1
 SHAPES = [(2, 33, 33, 5), (2, 48, 64, 17), (3, 20, 20, 41), (2, 20, 24, 81),
-          (8, 321, 321, 21), (4, 321, 321, 41), (4, 321, 321, 81)]
+          (8, 321, 321, 21), (4, 321, 321, 41), (4, 321, 321, 81),
+          (2, 2, 2, 5), (1, 65, 33, 21), (1, 33, 65, 9), (2, 20, 70, 11),
+          (3, 97, 40, 15), (2, 513, 513, 129), (2, 33, 33, 1)]
 
 
 def _maps(n, h, w, seed):
