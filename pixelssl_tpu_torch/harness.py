@@ -2,9 +2,11 @@
 ``pixelssl_tpu/harness.py``): build an algorithm and synthetic batches
 without the proxy, the CLI or data on disk.
 
-    args = harness.default_args('ssl_gct', backbone='resnet101', ...)
+    args = harness.default_args('ssl_mt', backbone='resnet101', ...)
     algo = harness.build_algorithm(args)            # on the card
     metrics = algo.train_step(harness.synthetic_batch(args))
+    scores = algo.validate(harness.synthetic_val_batches(args, 2), epoch=0)
+    algo.save_checkpoint(epoch=0, path='mt.pth')
 
 Every entry point runs on the card unless the caller passes
 ``device='cpu'``.
@@ -30,7 +32,7 @@ def _task_module(task):
     raise ValueError('Unknown task: {0!r}'.format(task))
 
 
-def default_args(ssl_algorithm='ssl_gct', task='sseg', **overrides):
+def default_args(ssl_algorithm='ssl_null', task='sseg', **overrides):
     """Full-default args namespace for the given task + algorithm."""
     parser = runner.create_parser(ssl_algorithm)
     _task_module(task).add_parser_arguments(parser)
@@ -87,6 +89,27 @@ def synthetic_batch(args, device='cuda', seed=0):
     gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
     if args.unlabeled_batch_size > 0:
         gt[args.labeled_batch_size:] = -1
+    return _to_batch(img, gt, device)
+
+
+def synthetic_val_batches(args, n, device='cuda', seed=0):
+    """``n`` labeled eval batches of ``labeled_batch_size`` samples for
+    ``validate``, drawn with numpy as ``synthetic_batch`` draws: NCHW
+    images and [N,H,W] int64 labels in [0, num_classes)."""
+    device = device_util.resolve(device)
+    rng = np.random.default_rng(seed)
+    b, s = args.labeled_batch_size, args.im_size
+    batches = []
+    for _ in range(n):
+        img = rng.standard_normal((b, s, s, 3)).astype(np.float32)
+        gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
+        batches.append(_to_batch(img, gt, device))
+    return batches
+
+
+def _to_batch(img, gt, device):
+    """NHWC float32 images and [N,H,W] labels (numpy) -> a batch of NCHW
+    images and int64 labels on ``device``."""
     img = torch.from_numpy(img).permute(0, 3, 1, 2).contiguous().to(device)
     gt = torch.from_numpy(gt).long().to(device)
     return {'inp': (img,), 'gt': (gt,)}

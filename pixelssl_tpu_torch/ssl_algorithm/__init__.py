@@ -1,12 +1,15 @@
 """SSL algorithm registry (counterpart of
-``pixelssl_tpu/ssl_algorithm/__init__.py``); this slice ports GCT only."""
+``pixelssl_tpu/ssl_algorithm/__init__.py``); the ported algorithms so far:
+SupOnly, Mean Teacher and GCT."""
 
 from . import ssl_base  # noqa: F401
-from . import ssl_gct
+from . import ssl_gct, ssl_mt, ssl_null
 
 SSL_GCT = ssl_gct.SSLGCT.NAME
 
 _MODULES = {
+    ssl_null.SSLNULL.NAME: ssl_null,
+    ssl_mt.SSLMT.NAME: ssl_mt,
     ssl_gct.SSLGCT.NAME: ssl_gct,
 }
 

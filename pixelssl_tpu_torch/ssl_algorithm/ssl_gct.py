@@ -210,6 +210,8 @@ class SSLGCT(SSLBase):
         self.fd_opt = torch.optim.Adam(self.fd_model.parameters(),
                                        lr=self.fd_lr_schedule(0),
                                        betas=(0.9, 0.99), eps=1e-8)
+        return {'l_opt': self.l_opt, 'r_opt': self.r_opt,
+                'fd_opt': self.fd_opt}
 
     def _step_fn(self, batch):
         args = self.args
@@ -298,3 +300,14 @@ class SSLGCT(SSLBase):
         metrics['lr'] = torch.tensor(self.l_lr_schedule(step),
                                      dtype=torch.float32)
         return metrics
+
+    def _eval_fn(self, batch):
+        """Both task models, ids ``l`` and ``r`` (JAX ssl_gct.py:410-421)."""
+        inp, gt = tuple(batch['inp']), tuple(batch['gt'])
+        out = {}
+        for mid, model, criterion in (('l', self.l_model, self.l_criterion),
+                                      ('r', self.r_model, self.r_criterion)):
+            resulter = model(inp)
+            out[mid] = (resulter['activated_pred'],
+                        criterion(resulter['pred'], gt, inp))
+        return out

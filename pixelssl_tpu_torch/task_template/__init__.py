@@ -21,6 +21,10 @@ def add_parser_arguments(parser):
                         metavar='', help='autoset - labeled samples per batch')
     parser.add_argument('--im-size', type=int, default=None, metavar='',
                         help='data - target input image size')
+    parser.add_argument('--resume', type=str, default='', metavar='',
+                        help='exp - checkpoint to resume')
+    parser.add_argument('--checkpoint-path', type=str, default='', metavar='',
+                        help='autoset - checkpoint dir')
     parser.add_argument('--ssl-algorithm', type=str, default='', metavar='',
                         help='ssl - algorithm name')
     parser.add_argument('--task', type=str, default='', metavar='',

@@ -1,6 +1,7 @@
 """Task function hooks (counterpart of
 ``pixelssl_tpu/task_template/func.py``; reference
-pixelssl/task_template/func.py:20-259), as far as GCT uses them.
+pixelssl/task_template/func.py:20-259), as far as the ported algorithms
+use them.
 """
 
 from ..utils import logger
@@ -13,6 +14,18 @@ class TaskFunc(object):
 
     def __init__(self, args=None):
         self.args = args
+
+    def device_prep(self, batch):
+        """Map a batch to the dtypes the task math expects before a train or
+        eval step (JAX func.py:29-38). Identity: the port's input path
+        hands over float32 images and int64 labels."""
+        return batch
+
+    def metrics(self, pred, gt, inp, meters, id_str=''):
+        """Accumulate task metrics into ``meters`` (reference
+        func.py:42-56); ``validate`` reports every key holding
+        ``METRIC_STR``."""
+        raise NotImplementedError
 
     # hooks for ssl_gct (reference func.py:148-183)
 
