@@ -8,9 +8,10 @@ Phases, each printing a line as it ends:
 1. the card: its name and power limit as ``nvidia-smi`` gives them;
 2. builds ``pixelssl_tpu_torch/csrc/blur.cu`` with ``nvcc`` for sm_90a;
 3. holds the blur kernel against its plain PyTorch version in float32 at
-   the three shapes of the GCT step at 321 px, a non-square map, a map
-   smaller than half the kernel (repeated reflection), the 513 px recipe's
-   widest blur and a map one past the kernel's tiles: max abs error
+   the three shapes of phase 5's GCT step at 321 px, the three of phase
+   11's (derived from its script's batch and size), a non-square map, a
+   map smaller than half the kernel (repeated reflection), the 513 px
+   recipe's widest blur and a map one past the kernel's tiles: max abs error
    <= 1e-5; times the kernel, the plain version and one cuBLAS form of the
    same product (``library_ms``, a yardstick the port never calls) with
    CUDA events around 50 calls from Python (``ms``, host overhead
@@ -39,14 +40,33 @@ Phases, each printing a line as it ends:
 9. ``validate`` of MT's student and teacher on two synthetic batches of 4
    at 321 px (mIoU in [0, 1], losses finite), and a checkpoint saved into
    a temporary directory, loaded into a fresh MT (equal parameters,
-   teacher included) and refused by SupOnly.
+   teacher included) and refused by SupOnly;
+10. the script path of MT: ``run_script`` with the config of
+    ``pixelssl_tpu_torch/scripts/deeplabv2_pascalvoc_1-8_sslmt.py``, its
+    data keys swapped for the synthetic dataset (ResNet-101 with random
+    weights, training from scratch), batch 2 + 2 at 321 px, 2 epochs of 5
+    iterations from two loader workers, validation (exact, 20 samples) and
+    a checkpoint after each epoch; prints each epoch's wall time per
+    iteration and samples/s, each iteration's time and its wait for the
+    loader, the peak memory, the student's and teacher's mIoU, the
+    ``metrics.jsonl`` line count (14), 3 more ``train_step`` calls of the
+    same algorithm on a batch already on the card, and 2 more after a
+    validation; then
+    ``run_script`` again in validation mode from ``checkpoint_2.pth``,
+    whose scores must equal the training run's within atol 1e-4 (the
+    largest difference printed; ``cudnn.benchmark`` may choose other
+    algorithms in another build);
+11. the script path of GCT: the same with
+    ``deeplabv2_pascalvoc_1-8_sslgct.py``, 1 epoch of 3 iterations; every
+    loss finite and the blur kernel launched 6 times an iteration.
 
-Phases 5, 7 and 8 print their step times and peak memory.
+Phases 5, 7, 8, 10 and 11 print their step times and peak memory.
 Then one JSON line with the kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
 result; so does a host without CUDA or a directory without the port. It
-writes nothing but the kernel build under ``pixelssl_tpu_torch/build/`` and
-the checkpoint in a temporary directory that it removes.
+writes nothing but the kernel build under ``pixelssl_tpu_torch/build/``, and
+the checkpoints and run directories in temporary directories that it
+removes.
 """
 
 import argparse
@@ -65,11 +85,28 @@ BLUR_LAUNCHES_PER_STEP = 6
 STEPS = 3
 ITERS_PER_EPOCH = 100
 
-# (N, H, W, k): the GCT step's calls at 321 px (ssl_gct.py flawmap_handler
-# k=odd(321/16), fdgt_generator k=odd(321/8) and odd(321/4)), then a
-# non-square map, a map with k//2 >= H, the widest blur at 513 px
-# (k=odd(513/4)) and a map one row and one column past the kernel's tiles
-MAIN_PATH_CASES = [(8, 321, 321, 21), (4, 321, 321, 41), (4, 321, 321, 81)]
+IM_SIZE = 321
+GCT_BATCH = (8, 4)  # the GCT path of phase 5: batch 4 labeled + 4 unlabeled
+
+
+def gct_blur_cases(batch_size, unlabeled_batch_size, im_size):
+    """(N, H, W, k) of the blur calls of one GCT step, each made twice (the
+    l and r models): ssl_gct.py flawmap_handler on the whole batch,
+    k=odd(im/16); fdgt_generator on the labeled part, k=odd(im/8) and
+    k=odd(im/4)."""
+    def odd(k):
+        return k + 1 if k % 2 == 0 else k
+    lbs = batch_size - unlabeled_batch_size
+    return [(batch_size, im_size, im_size, odd(int(im_size / 16))),
+            (lbs, im_size, im_size, odd(int(im_size / 8))),
+            (lbs, im_size, im_size, odd(int(im_size / 4)))]
+
+
+# the GCT step's calls of phase 5; then a non-square map, a map with
+# k//2 >= H, the widest blur at 513 px (k=odd(513/4)) and a map one row and
+# one column past the kernel's tiles; the script-GCT path's calls (phase
+# 11) come from its script's config, in phase 3
+MAIN_PATH_CASES = gct_blur_cases(GCT_BATCH[0], GCT_BATCH[1], IM_SIZE)
 EXTRA_CASES = [(3, 200, 321, 41), (2, 20, 24, 81), (2, 513, 513, 129),
                (1, 65, 33, 21)]
 GRAPH_CALLS = 20
@@ -144,7 +181,7 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/9] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/11] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
     return card
@@ -154,22 +191,28 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/9] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/11] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
-def phase_kernel(seed):
+def phase_kernel(seed, script_cases):
+    """The kernel against its plain version, and both timed, at the calls
+    of phase 5's GCT step (``gct``), of the script-GCT path
+    (``script_gct``, ``script_cases``) and at ``EXTRA_CASES``."""
     import numpy as np
     import torch
     from pixelssl_tpu_torch.ops import blur
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/9] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/11] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
-    for n, h, w, k in MAIN_PATH_CASES + EXTRA_CASES:
+    cases = ([('gct', c) for c in MAIN_PATH_CASES] +
+             [('script_gct', c) for c in script_cases] +
+             [('extra', c) for c in EXTRA_CASES])
+    for path, (n, h, w, k) in cases:
         x = torch.from_numpy(rng.standard_normal((n, h, w)).astype(
             np.float32)).cuda()
         out = blur.blur_kernel(x, k)
@@ -179,7 +222,7 @@ def phase_kernel(seed):
         bh = torch.from_numpy(blur._blur_matrix(h, k)).cuda()
         bw = torch.from_numpy(blur._blur_matrix(w, k)).cuda()
         row = {
-            'shape': [n, h, w], 'k': k, 'max_abs_err': err,
+            'path': path, 'shape': [n, h, w], 'k': k, 'max_abs_err': err,
             'ms': time_ms(lambda: blur.blur_kernel(x, k)),
             'plain_ms': time_ms(lambda: blur.blur_plain(x, k)),
             'library_ms': time_ms(
@@ -190,13 +233,14 @@ def phase_kernel(seed):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/9] blur [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/11] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
                 n, h, w, k, err, row['ms'], row['plain_ms'],
                 row['library_ms'], row['device_ms'],
-                row['library_device_ms'], row['bound_ms'], row['bound_by']))
+                row['library_device_ms'], row['bound_ms'], row['bound_by'],
+                path))
         if not err <= KERNEL_TOL:
             raise AssertionError('blur kernel disagrees with its plain '
                                  'version at {0}: {1} > {2}'.format(
@@ -232,7 +276,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/9] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/11] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -311,11 +355,11 @@ def build_full_width(args, tag, what):
 def phase_main_path(seed, steps):
     import torch
 
-    args = full_width_args('ssl_gct', seed, batch_size=8,
-                           unlabeled_batch_size=4, **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/9]', 'GCT')
+    args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
+                           unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
+    algo, batch = build_full_width(args, '[5/11]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/9]', 'GCT',
+        algo, batch, steps, '[5/11]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -326,7 +370,7 @@ def phase_main_path(seed, steps):
     algo.l_model.eval()
     with torch.no_grad():
         pred = algo.l_model(batch['inp'])['activated_pred'][0]
-    if tuple(pred.shape) != (8, 21, 321, 321) or not bool(
+    if tuple(pred.shape) != (GCT_BATCH[0], 21, IM_SIZE, IM_SIZE) or not bool(
             torch.isfinite(pred).all()):
         raise AssertionError('eval prediction {0} not finite or of the wrong '
                              'shape'.format(tuple(pred.shape)))
@@ -379,7 +423,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/9] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/11] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -391,7 +435,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/9] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/11] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -414,17 +458,17 @@ def profile_step(algo, batch, step_ms, top=10):
               not getattr(e, 'is_user_annotation', False)]
     total_us = sum(e.self_device_time_total for e in events)
     if not events or total_us <= 0:
-        say('[7/9] MT step profile: the profiler recorded no device time')
+        say('[7/11] MT step profile: the profiler recorded no device time')
         return
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     steady_ms = statistics.median(step_ms[1:])
-    say('[7/9] MT step profile: {0:.3f} ms of device time in {1} kernel '
+    say('[7/11] MT step profile: {0:.3f} ms of device time in {1} kernel '
         'launches ({2} distinct kernels), {3:.1f}% of a {4:.1f} ms step '
         '(median of the timed steps after the first); top {5}:'.format(
             total_us / 1e3, sum(e.count for e in events), len(events),
             100.0 * total_us / 1e3 / steady_ms, steady_ms, top))
     for e in events[:top]:
-        say('[7/9]   {0:8.3f} ms {1:5.1f}% x{2:<4} {3}'.format(
+        say('[7/11]   {0:8.3f} ms {1:5.1f}% x{2:<4} {3}'.format(
             e.self_device_time_total / 1e3,
             100.0 * e.self_device_time_total / total_us, e.count,
             e.key[:150]))
@@ -434,9 +478,9 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/9]', 'MT')
+    algo, batch = build_full_width(args, '[7/11]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/9]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/11]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
@@ -451,8 +495,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/9]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/9]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/11]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/11]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -483,7 +527,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/9] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/11] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -511,9 +555,241 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/9] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/11] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
+
+
+# the script phases: samples of the synthetic set (every other one
+# labeled) and the iterations an epoch that they give at batch 2 + 2
+SCRIPT_SAMPLES = {'ssl_mt': 20, 'ssl_gct': 12}
+SCRIPT_EPOCHS = {'ssl_mt': 2, 'ssl_gct': 1}
+RESCORE_ATOL = 1e-4
+
+
+SCRIPT_MT = 'deeplabv2_pascalvoc_1-8_sslmt.py'
+SCRIPT_GCT = 'deeplabv2_pascalvoc_1-8_sslgct.py'
+
+
+def load_script_config(script):
+    """The config of one of the port's experiment scripts, as written."""
+    import runpy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'pixelssl_tpu_torch', 'scripts', script)
+    return runpy.run_path(path)['config']
+
+
+def script_blur_cases(script):
+    """The blur calls of one GCT step at the batch and size of ``script``."""
+    config = load_script_config(script)
+    return gct_blur_cases(config['batch_size'],
+                          config['unlabeled_batch_size'], config['im_size'])
+
+
+def script_config(script, out, algo_name):
+    """The config of one of the port's experiment scripts with its data
+    keys swapped: the synthetic dataset in place of PASCAL VOC, a
+    sublabeled file of synthetic names, ResNet-101 with random weights,
+    training from scratch, a few epochs and samples; the recipe's other
+    values as the script gives them."""
+    config = load_script_config(script)
+    n = SCRIPT_SAMPLES[algo_name]
+    sub_path = os.path.join(out, 'sublabeled.txt')
+    with open(sub_path, 'w') as f:
+        for i in range(0, n, 2):
+            f.write('synthetic_{0:05d}\n'.format(i))
+    config.update([
+        ('trainset', {'synthetic_sseg': ['synthetic']}),
+        ('valset', {'synthetic_sseg': ['synthetic']}),
+        ('synthetic_samples', n),
+        ('sublabeled_path', sub_path),
+        ('backbone', 'resnet101'),
+        ('validation', False),
+        ('resume', ''),
+        ('out_path', out),
+        ('epochs', SCRIPT_EPOCHS[algo_name]),
+        ('log_freq', 1), ('val_freq', 1), ('checkpoint_freq', 1),
+        ('num_workers', 2),
+    ])
+    return config
+
+
+def read_records(config):
+    path = os.path.join(config['out_path'], config['exp_id'], 'metrics.jsonl')
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_script_phase(tag, script, algo_name, out):
+    """``run_script`` of a script config on the card, the blur launches
+    counted from 0 and the peak memory from a reset; every train record's
+    losses finite and > 0 where they are task losses. Returns the config,
+    the proxy, the records and the blur launches."""
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.tasks import sseg
+
+    config = script_config(script, out, algo_name)
+    say('{0} run_script {1}: {2} synthetic samples, batch {3}+{4}, '
+        '{5} epoch(s), {6} workers, exact_val {7}'.format(
+            tag, script, config['synthetic_samples'],
+            config['batch_size'] - config['unlabeled_batch_size'],
+            config['unlabeled_batch_size'], config['epochs'],
+            config['num_workers'], config['exact_val']))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blur.launches = 0
+    t0 = time.perf_counter()
+    proxy = pixelssl_tpu_torch.run_script(
+        config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+        cli_override=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = blur.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = read_records(config)
+    train = [r for r in records if r['phase'] == 'train']
+    iters = len(proxy.train_loader)
+    if len(train) != iters * config['epochs']:
+        raise AssertionError('{0} train records, expected {1}'.format(
+            len(train), iters * config['epochs']))
+    for r in train:
+        losses = {k: v for k, v in r.items() if k.endswith('_loss')}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError('non-finite loss: {0}'.format(r))
+        if not all(v > 0 for k, v in losses.items() if 'task' in k):
+            raise AssertionError('task loss <= 0: {0}'.format(r))
+    for r in records:
+        if r['phase'] == 'epoch_summary':
+            its = [t for t in train if t['epoch'] == r['epoch']]
+            say('{0} epoch {1}: {2} iterations in {3:.3f} s, {4:.1f} ms an '
+                'iteration, {5:.2f} samples/s; each iteration ms (of it '
+                'waiting for the loader): {6}'.format(
+                    tag, r['epoch'], r['iters'], r['wall_s'],
+                    1e3 * r['wall_s'] / r['iters'], r['samples_per_sec'],
+                    ' '.join('{0:.1f} ({1:.1f})'.format(
+                        1e3 * t['batch_time'], 1e3 * t['data_time'])
+                        for t in its)))
+    val = [r for r in records if r['phase'] == 'val']
+    if len(val) != config['epochs']:
+        raise AssertionError('{0} val records'.format(len(val)))
+    for key, value in val[-1].items():
+        if 'mIoU' in key and not 0.0 <= value <= 1.0:
+            raise AssertionError('{0} = {1}'.format(key, value))
+    say('{0} run_script took {1:.1f} s; peak memory {2:.2f} GiB; '
+        'blur launches {3}; last val: {4}'.format(
+            tag, wall_s, peak_gib, launches, '  '.join(
+                '{0} {1:.5f}'.format(k, v) for k, v in sorted(val[-1].items())
+                if 'mIoU' in k or k.endswith('_loss'))))
+    return config, proxy, records, launches
+
+
+def bare_steps_ms(algo, loader, steps):
+    """``steps`` more ``train_step`` calls on one batch of ``loader``,
+    already on the card, each between CUDA events."""
+    import torch
+    batch = next(iter(loader))
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = algo.train_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError('non-finite metrics {0}'.format(metrics))
+    return times
+
+
+def phase_script_mt():
+    """MT through the script path, then its rescore from
+    ``checkpoint_2.pth``."""
+    import statistics
+    import tempfile
+
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.tasks import sseg
+
+    tag = '[10/11]'
+    with tempfile.TemporaryDirectory() as out:
+        config, proxy, records, launches = run_script_phase(
+            tag, SCRIPT_MT, 'ssl_mt', out)
+        if launches != 0:
+            raise AssertionError('MT launched the blur kernel {0} '
+                                 'times'.format(launches))
+        expected_lines = config['epochs'] * (len(proxy.train_loader) + 2)
+        if len(records) != expected_lines:
+            raise AssertionError('metrics.jsonl has {0} lines, expected '
+                                 '{1}'.format(len(records), expected_lines))
+        bare = bare_steps_ms(proxy.ssl_algorithm, proxy.train_loader, STEPS)
+        say('{0} metrics.jsonl: {1} lines; {2} more train_step calls on a '
+            'batch on the card: {3} ms (median {4:.1f})'.format(
+                tag, len(records), STEPS,
+                ' '.join('{0:.1f}'.format(t) for t in bare),
+                statistics.median(bare)))
+        # the first step of an epoch follows a validation: time one such
+        # step without the loader in the way
+        proxy.ssl_algorithm.validate(proxy.val_loader, config['epochs'])
+        after = bare_steps_ms(proxy.ssl_algorithm, proxy.train_loader, 2)
+        say('{0} after a validation, 2 train_step calls on a batch on the '
+            'card: {1} ms'.format(
+                tag, ' '.join('{0:.1f}'.format(t) for t in after)))
+
+        trained = [r for r in records if r['phase'] == 'val'][-1]
+        ckpt = os.path.join(proxy.args.checkpoint_path, 'checkpoint_2.pth')
+        rescore = dict(config, validation=True, resume=ckpt)
+        pixelssl_tpu_torch.run_script(
+            rescore, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+            cli_override=False)
+        rescored = read_records(config)[-1]
+        keys = [k for k in trained if 'metric' in k or k.endswith('_loss')]
+        if rescored['phase'] != 'val' or sorted(keys) != sorted(
+                k for k in rescored if 'metric' in k or k.endswith('_loss')):
+            raise AssertionError('rescore record {0}'.format(rescored))
+        diff = max(abs(rescored[k] - trained[k]) for k in keys)
+        say('{0} rescore from checkpoint_2.pth: {1} scores, largest '
+            'difference from the training run {2:.3g} (atol {3:g})'.format(
+                tag, len(keys), diff, RESCORE_ATOL))
+        if not diff <= RESCORE_ATOL:
+            raise AssertionError('rescore differs by {0}'.format(diff))
+        del proxy
+    no_workers_left(tag)
+
+
+def no_workers_left(tag):
+    """The loader's worker processes end with their run: none may be left
+    once the run's objects are gone."""
+    import gc
+    import multiprocessing
+
+    gc.collect()
+    children = multiprocessing.active_children()
+    if children:
+        raise AssertionError('{0} worker processes left: {1}'.format(
+            tag, children))
+
+
+def phase_script_gct():
+    """GCT through the script path; returns its blur launches."""
+    import tempfile
+
+    tag = '[11/11]'
+    with tempfile.TemporaryDirectory() as out:
+        _, proxy, records, launches = run_script_phase(
+            tag, SCRIPT_GCT, 'ssl_gct', out)
+        iters = len(proxy.train_loader)
+        if launches != BLUR_LAUNCHES_PER_STEP * iters:
+            raise AssertionError('blur kernel launched {0} times in {1} '
+                                 'iterations, expected {2}'.format(
+                                     launches, iters,
+                                     BLUR_LAUNCHES_PER_STEP * iters))
+        del proxy
+    no_workers_left(tag)
+    return launches
 
 
 def main(argv=None):
@@ -547,27 +823,40 @@ def main(argv=None):
     try:
         card = phase_device()
         phase_build()
-        rows, floor_ms = phase_kernel(opts.seed)
+        rows, floor_ms = phase_kernel(opts.seed,
+                                      script_blur_cases(SCRIPT_GCT))
         phase_small_reference(opts.seed)
         launches = phase_main_path(opts.seed, STEPS)
         phase_small_mt_null(opts.seed, STEPS)
         mt_algo = phase_mt(opts.seed, STEPS)
         null_algo = phase_null(opts.seed, STEPS)
         phase_validate_checkpoint(mt_algo, null_algo, opts.seed)
+        del mt_algo, null_algo
+        phase_script_mt()
+        script_launches = phase_script_gct()
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
 
-    # the kernel's line covers one GCT step: two calls at each main-path
-    # shape; its bound is that of the six calls' bytes and operations
-    main_rows = rows[:len(MAIN_PATH_CASES)]
-    per_step = {key: 2 * sum(r[key] for r in main_rows)
-                for key in ('ms', 'plain_ms', 'library_ms', 'device_ms',
-                            'library_device_ms')}
-    terms = [blur_bound_terms_ms(*case) for case in MAIN_PATH_CASES]
-    bound_ms, bound_by = bound(2 * sum(t[0] for t in terms),
-                               2 * sum(t[1] for t in terms))
+    # the kernel's line covers one GCT step of phase 5: two calls at each of
+    # its shapes; its bound is that of the six calls' bytes and operations;
+    # ``script_gct`` the same for a step of phase 11
+    def per_step(path):
+        step_rows = [r for r in rows if r['path'] == path]
+        out = {key: 2 * sum(r[key] for r in step_rows)
+               for key in ('ms', 'plain_ms', 'library_ms', 'device_ms',
+                           'library_device_ms')}
+        terms = [blur_bound_terms_ms(r['shape'][0], r['shape'][1],
+                                     r['shape'][2], r['k'])
+                 for r in step_rows]
+        out['bound_ms'], out['bound_by'] = bound(
+            2 * sum(t[0] for t in terms), 2 * sum(t[1] for t in terms))
+        out['max_abs_err'] = max(r['max_abs_err'] for r in step_rows)
+        return out
+
+    gct_step, script_step = per_step('gct'), per_step('script_gct')
+    script_step['launches'] = script_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -575,15 +864,19 @@ def main(argv=None):
         'replaces': 'pixelssl_tpu/ops/blur_pallas.py:49',
         'launches': launches,
         'max_abs_err': max(r['max_abs_err'] for r in rows),
-        'ms': per_step['ms'],
-        'plain_ms': per_step['plain_ms'],
-        'bound_ms': bound_ms,
-        'bound_by': bound_by,
-        'library_ms': per_step['library_ms'],
-        'device_ms': per_step['device_ms'],
-        'library_device_ms': per_step['library_device_ms'],
+        'ms': gct_step['ms'],
+        'plain_ms': gct_step['plain_ms'],
+        'bound_ms': gct_step['bound_ms'],
+        'bound_by': gct_step['bound_by'],
+        'library_ms': gct_step['library_ms'],
+        'device_ms': gct_step['device_ms'],
+        'library_device_ms': gct_step['library_device_ms'],
         'launch_floor_ms': floor_ms,
-        'per': 'one GCT step at 321 px: 2x each of the calls in calls',
+        'per': 'one GCT step of phase 5 at 321 px, batch 4+4: 2x each of '
+               'the calls of path gct; launches: its 3 steps. script_gct: '
+               'the same for a step of the run_script of phase 11, batch '
+               '2+2, from the calls of path script_gct',
+        'script_gct': script_step,
         'calls': rows,
     }
     say(card)

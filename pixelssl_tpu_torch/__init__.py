@@ -18,4 +18,4 @@ from . import task_template
 from . import tasks
 from . import ssl_algorithm
 from . import harness
-from .runner import create_parser
+from .runner import create_parser, run_script

@@ -16,8 +16,6 @@ import numpy as np
 import torch
 
 from . import runner
-from .nn import lrer as nnlrer
-from .nn import optimizer as nnoptimizer
 from .utils import device as device_util
 
 _TASK_DEFAULTS = {
@@ -52,30 +50,14 @@ def default_args(ssl_algorithm='ssl_null', task='sseg', **overrides):
 
 
 def build_algorithm(args, device='cuda', iters_per_epoch=10):
-    """Resolve the component dicts and build the algorithm on ``device``
-    (mirrors the JAX harness, reference proxy.py:421-441)."""
+    """Build the algorithm on ``device`` (mirrors the JAX harness), through
+    the builder the task proxy uses."""
     from . import ssl_algorithm as ssl_registry
 
-    device = device_util.resolve(device)
     task = _task_module(getattr(args, 'task', 'sseg') or 'sseg')
-    model_dict, criterion_dict, optimizer_dict, lrer_dict = {}, {}, {}, {}
-    for cname in args.models.keys():
-        model_dict[cname] = getattr(task.model, args.models[cname])()
-        criterion_dict[cname] = getattr(
-            task.criterion, args.criterions[cname])()(args)
-        lrer_dict[cname] = getattr(nnlrer, args.lrers[cname])(args)
-        optimizer_dict[cname] = getattr(nnoptimizer,
-                                        args.optimizers[cname])(args)
-    task_func = task.func.task_func()(args)
-
-    builder = ssl_registry.get_builder(args.ssl_algorithm)
-    algo = builder(args, model_dict, optimizer_dict, lrer_dict,
-                   criterion_dict, task_func, device=device,
-                   lbs=args.labeled_batch_size,
-                   ubs=args.unlabeled_batch_size,
-                   iters_per_epoch=iters_per_epoch)
-    algo.build()
-    return algo
+    return ssl_registry.build_algorithm(
+        args, task.model, task.criterion, task.func,
+        device_util.resolve(device), iters_per_epoch)
 
 
 def synthetic_batch(args, device='cuda', seed=0):

@@ -1,0 +1,98 @@
+"""Host batch loader (counterpart of ``pixelssl_tpu/nn/loader.py``).
+
+PyTorch's own idiom, the reference's loader (reference
+pixelssl/task_template/proxy.py:374-380):
+``torch.utils.data.DataLoader`` over the task dataset, with
+``num_workers`` worker processes that live as long as the loader. They are
+forked once, on the loader's first epoch: a worker never touches CUDA, so
+the parent's CUDA context does not matter to it. Workers return numpy
+samples and ``stack_samples`` stacks them into CPU tensors (pinned by the
+loader when the batches go to the card).
+
+The batch sampler runs in the main process, so that the index sequence is
+the sampler's whatever the worker count. ``to_device`` then makes a batch
+what the algorithms take: NCHW float32 images and int64 labels on the
+device, copied with ``non_blocking`` from pinned memory on the current
+stream and permuted there.
+"""
+
+import numpy as np
+import torch
+import torch.utils.data
+
+# how the worker processes start: forked, the first batch of a run waits
+# 0.4 s on an H100 host; spawned, 8 s, each worker importing torch and the
+# port first (``tools/torch_loader_ab.py`` times both)
+START_METHOD = 'fork'
+
+
+def stack_samples(samples):
+    """``[(inp_tuple, gt_tuple), ...]`` of numpy arrays -> ``(inp_tuple,
+    gt_tuple)`` of batched CPU tensors."""
+    n_inp, n_gt = len(samples[0][0]), len(samples[0][1])
+    inp = tuple(torch.from_numpy(np.stack([s[0][i] for s in samples]))
+                for i in range(n_inp))
+    gt = tuple(torch.from_numpy(np.stack([s[1][i] for s in samples]))
+               for i in range(n_gt))
+    return inp, gt
+
+
+def to_device(inp, gt, device, valid=None):
+    """A batch on ``device``: images [N,H,W,C] -> [N,C,H,W] float32, integer
+    labels -> int64, ``valid`` -> float32."""
+    def image(x):
+        x = x.to(device, non_blocking=True)
+        if x.dim() == 4:
+            x = x.permute(0, 3, 1, 2)
+        return x.float().contiguous()
+
+    def label(x):
+        x = x.to(device, non_blocking=True)
+        return x.long() if not x.is_floating_point() else x
+
+    batch = {'inp': tuple(image(x) for x in inp),
+             'gt': tuple(label(x) for x in gt)}
+    if valid is not None:
+        batch['valid'] = valid.to(device, non_blocking=True).float()
+    return batch
+
+
+class _EpochBatches(object):
+    """The batch sampler that PyTorch's loader sees: the index batches of
+    the current epoch, drawn before it starts. PyTorch may call ``iter`` on
+    its batch sampler more than once an epoch (twice on the first), and
+    the two-stream sampler draws its permutations when it is iterated."""
+
+    def __init__(self):
+        self.batches = []
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+class DataLoader(object):
+    """Train batches on ``device`` from ``dataset`` and ``batch_sampler``,
+    loaded by ``num_workers`` worker processes (none: in the main
+    process). Each epoch walks ``batch_sampler`` once."""
+
+    def __init__(self, dataset, batch_sampler, device, num_workers=0):
+        self.batch_sampler = batch_sampler
+        self.device = torch.device(device)
+        self._epoch = _EpochBatches()
+        workers = dict(multiprocessing_context=START_METHOD,
+                       persistent_workers=True) if num_workers > 0 else {}
+        self.loader = torch.utils.data.DataLoader(
+            dataset, batch_sampler=self._epoch, num_workers=num_workers,
+            collate_fn=stack_samples,
+            pin_memory=self.device.type == 'cuda', **workers)
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        self._epoch.batches = list(self.batch_sampler)
+        for inp, gt in self.loader:
+            yield to_device(inp, gt, self.device)

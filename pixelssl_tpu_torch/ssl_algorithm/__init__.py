@@ -27,3 +27,47 @@ def get_module(name):
 def get_builder(name):
     """The export function, e.g. ssl_gct.ssl_gct."""
     return getattr(get_module(name), name)
+
+
+def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
+                    task_type=None):
+    """Resolve ``args.models``/``criterions``/``lrers``/``optimizers`` in
+    the task's ``model`` and ``criterion`` modules and the port's
+    registries, then build ``args.ssl_algorithm`` on ``device`` and
+    initialise it from ``--seed`` (JAX proxy.py:498-544). The proxy and
+    the harness both build through here. With ``task_type``, an algorithm
+    that does not support it is refused."""
+    from ..nn import lrer as nnlrer
+    from ..nn import optimizer as nnoptimizer
+    from ..utils import logger
+
+    model_dict, criterion_dict, optimizer_dict, lrer_dict = {}, {}, {}, {}
+    for cname in args.models.keys():
+        for mod, registry, kind in ((model, args.models, 'model'),
+                                    (criterion, args.criterions,
+                                     'criterion'),
+                                    (nnlrer, args.lrers, 'lrer'),
+                                    (nnoptimizer, args.optimizers,
+                                     'optimizer')):
+            if not hasattr(mod, registry[cname]):
+                logger.log_err('Unknown {0} `{1}` for component `{2}`'
+                               .format(kind, registry[cname], cname))
+        model_dict[cname] = getattr(model, args.models[cname])()
+        criterion_dict[cname] = getattr(
+            criterion, args.criterions[cname])()(args)
+        lrer_dict[cname] = getattr(nnlrer, args.lrers[cname])(args)
+        optimizer_dict[cname] = getattr(nnoptimizer,
+                                        args.optimizers[cname])(args)
+    task_func = func.task_func()(args)
+
+    algo = get_builder(args.ssl_algorithm)(
+        args, model_dict, optimizer_dict, lrer_dict, criterion_dict,
+        task_func, device=device, lbs=args.labeled_batch_size,
+        ubs=args.unlabeled_batch_size,
+        iters_per_epoch=max(1, int(iters_per_epoch or 1)))
+    if task_type is not None and task_type not in algo.SUPPORTED_TASK_TYPES:
+        logger.log_err('SSL algorithm {0} supports {1}, but the task is '
+                       '{2}'.format(algo.NAME, algo.SUPPORTED_TASK_TYPES,
+                                    task_type))
+    algo.build()
+    return algo

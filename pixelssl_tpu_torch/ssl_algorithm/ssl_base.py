@@ -2,8 +2,9 @@
 ``pixelssl_tpu/ssl_algorithm/ssl_base.py``).
 
 An algorithm owns its modules, optimizers and schedules on one device and
-takes one train step per ``train_step(batch)``; ``state.step`` counts the
-steps taken. ``build()`` initialises every weight from one
+takes one train step per ``train_step(batch)``; ``train(loader, epoch)``
+runs an epoch of them and ``state.step`` counts the steps taken.
+``build()`` initialises every weight from one
 ``torch.Generator`` seeded with ``--seed``, on the CPU, then moves the
 modules to the algorithm's device. ``validate`` scores the models that the
 algorithm's ``_eval_fn`` names; ``save_checkpoint``/``load_checkpoint``
@@ -17,6 +18,7 @@ the checkpoint carries as the JAX package's carries its base key.
 
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -132,6 +134,67 @@ class SSLBase(object):
         optimizer.zero_grad(set_to_none=True)
         loss.backward(inputs=list(params))
         optimizer.step()
+
+    # ------------------------------------------------------------------
+    # the epoch loop (JAX ssl_base.py:207-285)
+    # ------------------------------------------------------------------
+
+    def train(self, data_loader, epoch):
+        """One epoch: a ``train_step`` for each batch of ``data_loader``.
+        The metrics come to the host (a device sync) only every
+        ``--log-freq`` iterations and on the last one, where they feed the
+        meters, the iteration's log line and a ``metrics.jsonl`` record.
+        The record also carries ``batch_time``, the wall time per
+        iteration since the last such point, and ``data_time``, the part
+        of it spent waiting for the loader (host clock; the device runs
+        ahead of the host between syncs)."""
+        self.meters.reset()
+        args = self.args
+        n_batches = len(data_loader)
+        log_freq = max(1, args.log_freq)
+        t0 = time.time()
+        wait = 0.0
+        last_logged = 0
+        t_wait = t0
+        for idx, batch in enumerate(data_loader):
+            wait += time.time() - t_wait
+            metrics = self.train_step(batch)
+            if (idx + 1) % log_freq == 0 or idx == n_batches - 1:
+                values = {k: v.item() for k, v in metrics.items()}
+                n = max(1, idx + 1 - last_logged)
+                times = {'batch_time': (time.time() - t0) / n,
+                         'data_time': wait / n}
+                self.meters.update_dict(values)
+                self.meters.update_dict(times)
+                last_logged = idx + 1
+                logger.log_info('epoch {0:>3} iter {1:>5}/{2:<5} {3}'.format(
+                    epoch, idx + 1, n_batches, '  '.join(
+                        '{0}: {1:.5f}'.format(k, v)
+                        for k, v in sorted(values.items()))))
+                self._log_jsonl(dict(values, phase='train', epoch=epoch,
+                                     iter=idx + 1, algorithm=self.NAME,
+                                     **times))
+                t0 = time.time()
+                wait = 0.0
+            t_wait = time.time()
+        return self.meters
+
+    def log_epoch_summary(self, epoch, wall_s, n_iters):
+        """The epoch's samples/s through the whole loop (loader, copies to
+        the device, steps), logged and written to ``metrics.jsonl``."""
+        n_chips = 1
+        sps = n_iters * int(self.args.batch_size) / max(wall_s, 1e-9)
+        logger.log_info(
+            'epoch {0:>3} done: {1} iters in {2:.1f}s, {3:.1f} samples/s '
+            '({4:.1f}/chip x {5} chips), avg step {6:.3f}s'.format(
+                epoch, n_iters, wall_s, sps, sps / n_chips, n_chips,
+                wall_s / max(1, n_iters)))
+        self._log_jsonl(dict(
+            phase='epoch_summary', epoch=epoch, algorithm=self.NAME,
+            wall_s=round(wall_s, 3), iters=n_iters,
+            samples_per_sec=round(sps, 2),
+            samples_per_sec_per_chip=round(sps / n_chips, 2),
+            n_chips=n_chips))
 
     # ------------------------------------------------------------------
     # validation (JAX ssl_base.py:396-445)

@@ -1,0 +1,257 @@
+"""The port's experiment path, ``run_script`` -> task proxy -> two-stream
+loader -> epoch loop -> validation -> checkpoint, against the JAX
+package's on the same config: a Mean Teacher run of one epoch (4
+iterations) on a half-labeled synthetic set, ResNet-10 at 64 px, float32,
+lr 5e-5 (tests/test_torch_mt.py: the toy diverges at 2.5e-4), no input
+noise. The JAX package runs through its proxy on a one-device mesh; the
+port on the CPU, from the JAX package's initial weights (carried across by
+``models.convert.from_jax`` before ``run()``), with two loader workers.
+
+Tolerances, as tests/test_torch_mt.py and tests/test_torch_eval.py state
+them: each iteration's train record, rtol 2e-3 on the task losses and the
+lr, rtol 2e-2 with atol 1e-9 on ``cons_loss``; the val losses rtol 2e-3,
+the scores (acc, acc_class, mIoU, fwIoU) atol 1e-3. The rescore of the
+port's own checkpoint reproduces its val metrics exactly.
+"""
+
+import collections
+import json
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from pixelssl_tpu import parallel
+from pixelssl_tpu import runner as jax_runner
+from pixelssl_tpu.tasks import sseg as jax_sseg
+from pixelssl_tpu.utils import cmd as jax_cmd
+
+import pixelssl_tpu_torch
+from pixelssl_tpu_torch import harness
+from pixelssl_tpu_torch.models.convert import from_jax
+from pixelssl_tpu_torch.tasks import sseg
+from pixelssl_tpu_torch.utils import logger
+
+from test_torch_mt import one_torch_thread  # noqa: F401
+
+N_SAMPLES = 16
+TRAIN_KEYS = ('s_task_loss', 't_task_loss', 'cons_loss', 'lr')
+TRAIN_TOLS = {'cons_loss': (2e-2, 1e-9)}
+
+
+def _config(out, sub_path, **overrides):
+    cfg = collections.OrderedDict([
+        ('exp_id', 'mt'),
+        ('out_path', str(out)),
+        ('ssl_algorithm', 'ssl_mt'),
+        ('trainset', {'synthetic_sseg': ['synthetic']}),
+        ('valset', {'synthetic_sseg': ['synthetic']}),
+        ('synthetic_samples', N_SAMPLES),
+        ('sublabeled_path', str(sub_path)),
+        ('ignore_unlabeled', False),
+        ('models', {'model': 'deeplabv2'}),
+        ('optimizers', {'model': 'sgd'}),
+        ('lrers', {'model': 'polynomiallr'}),
+        ('criterions', {'model': 'sseg_criterion'}),
+        ('backbone', 'resnet10'),
+        ('im_size', 64),
+        ('num_classes', 5),
+        ('batch_size', 4),
+        ('unlabeled_batch_size', 2),
+        ('epochs', 1),
+        ('log_freq', 1),
+        ('bf16', False),
+        ('lr', 5e-5), ('momentum', 0.9), ('weight_decay', 5e-4),
+        ('cons_for_labeled', False), ('cons_scale', 1.0),
+        ('cons_rampup_epochs', 3), ('ema_decay', 0.99),
+        ('num_workers', 2),
+        ('seed', 5),
+    ])
+    cfg.update(overrides)
+    return cfg
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _port_proxy(config):
+    """The port's proxy built (not run) from ``config`` on the CPU."""
+    parser = pixelssl_tpu_torch.create_parser(config['ssl_algorithm'])
+    sseg.add_parser_arguments(parser)
+    args = pixelssl_tpu_torch.utils.cmd.parse_args(parser, config,
+                                                   cli_override=False)
+    return sseg.SemanticSegmentationProxy(args, device='cpu')
+
+
+def _run_both(root):
+    """One MT run of each package from the same initial weights; returns
+    their ``metrics.jsonl`` records, the port's proxy and its config."""
+    sub_path = root / 'sublabeled.txt'
+    sub_path.write_text(''.join('synthetic_{0:05d}\n'.format(i)
+                                for i in range(0, N_SAMPLES, 2)))
+
+    jconfig = _config(root / 'jax', sub_path, num_workers=0)
+    parser = jax_runner.create_parser('ssl_mt')
+    jax_sseg.add_parser_arguments(parser)
+    jargs = jax_cmd.parse_args(parser, jconfig, cli_override=False)
+    jproxy = jax_sseg.SemanticSegmentationProxy(
+        jargs, mesh=parallel.make_mesh(1))
+    initial = jax.tree.map(np.asarray,
+                           jax.device_get(jproxy.ssl_algorithm.state))
+    jproxy.run()
+
+    config = _config(root / 'port', sub_path)
+    proxy = _port_proxy(config)
+    for key, module in proxy.ssl_algorithm.modules.items():
+        module.load_state_dict(from_jax(initial[key]))
+    proxy.run()
+    return (_records(root / 'jax' / 'mt' / 'metrics.jsonl'),
+            _records(root / 'port' / 'mt' / 'metrics.jsonl'), proxy, config)
+
+
+def _check_train_records(ours_all, theirs_all):
+    ours = [r for r in ours_all if r['phase'] == 'train']
+    theirs = [r for r in theirs_all if r['phase'] == 'train']
+    assert [r['iter'] for r in ours] == [r['iter'] for r in theirs] == [
+        1, 2, 3, 4]
+    for a, b in zip(ours, theirs):
+        for key in TRAIN_KEYS:
+            rtol, atol = TRAIN_TOLS.get(key, (2e-3, 1e-6))
+            assert np.isclose(a[key], b[key], rtol=rtol, atol=atol), (
+                a['iter'], key, a[key], b[key])
+    assert ours[0]['cons_loss'] == 0.0 and ours[2]['cons_loss'] > 0.0
+    summary = [r for r in ours_all if r['phase'] == 'epoch_summary']
+    assert len(summary) == 1 and summary[0]['iters'] == 4
+    assert summary[0]['n_chips'] == 1 and summary[0]['samples_per_sec'] > 0
+
+
+def _check_val_scores(ours_all, theirs_all):
+    (ours, ) = [r for r in ours_all if r['phase'] == 'val']
+    (theirs, ) = [r for r in theirs_all if r['phase'] == 'val']
+    keys = sorted(k for k in theirs if 'metric' in k or k.endswith('_loss'))
+    assert keys == sorted(k for k in ours if 'metric' in k or
+                          k.endswith('_loss'))
+    assert any(k.startswith('teacher_metric_mIoU') for k in keys)
+    for key in keys:
+        if key.endswith('_loss'):
+            assert np.isclose(ours[key], theirs[key], rtol=2e-3), key
+        else:
+            assert abs(ours[key] - theirs[key]) <= 1e-3, key
+
+
+def _check_checkpoint_and_lr_schedule(proxy, ours_all):
+    """``checkpoint_1.pth`` saved after the 4 steps, and a schedule that
+    counts the proxy's 4 iterations an epoch: the lr of each iteration is
+    the poly schedule of its step over 4 steps."""
+    algo = proxy.ssl_algorithm
+    assert proxy.args.iters_per_epoch == len(proxy.train_loader) == 4
+    assert algo.ctx.iters_per_epoch == 4 and algo.state.step == 4
+    lrs = [r['lr'] for r in ours_all if r['phase'] == 'train']
+    np.testing.assert_allclose(
+        lrs, [5e-5 * (1 - s / 4) ** 0.9 for s in range(4)], rtol=1e-6)
+    ckpt = torch.load(proxy.args.checkpoint_path + '/checkpoint_1.pth',
+                      weights_only=True)
+    assert ckpt['epoch'] == 1 and ckpt['step'] == 4
+
+
+def _check_rescore(config, ckpt_dir, ours_all, how):
+    """Validation only, from ``checkpoint_1.pth`` named by ``--resume`` or
+    found by ``--auto-resume``: every val metric equal to the training
+    run's."""
+    config = collections.OrderedDict(config)
+    config['validation'] = True
+    if how == 'resume':
+        config['resume'] = ckpt_dir + '/checkpoint_1.pth'
+    else:
+        config['auto_resume'] = True
+    proxy = pixelssl_tpu_torch.run_script(
+        config, sseg, sseg.SemanticSegmentationProxy, device='cpu',
+        cli_override=False)
+    assert proxy.args.resume == ckpt_dir + '/checkpoint_1.pth'
+    (trained, ) = [r for r in ours_all if r['phase'] == 'val']
+    rescored = _records(ckpt_dir + '/../metrics.jsonl')[-1]
+    assert rescored['phase'] == 'val' and rescored['epoch'] == 1
+    for key, value in trained.items():
+        if 'metric' in key or key.endswith('_loss'):
+            assert rescored[key] == value, (how, key)
+
+
+def test_run_script_mt_matches_jax_and_rescores(tmp_path):
+    """The MT runs of both packages (one test, so that the JAX run is
+    built once whatever the worker count): train records and val scores
+    within the stated tolerances, the checkpoint and the lr schedule, then
+    the port's rescore by ``--resume`` and by ``--auto-resume``. The
+    checkpoints (about 200 MB each) are removed at the end."""
+    try:
+        theirs, ours, proxy, config = _run_both(tmp_path)
+        _check_train_records(ours, theirs)
+        _check_val_scores(ours, theirs)
+        _check_checkpoint_and_lr_schedule(proxy, ours)
+        for how in ('resume', 'auto_resume'):
+            _check_rescore(config, proxy.args.checkpoint_path, ours, how)
+    finally:
+        shutil.rmtree(tmp_path / 'jax', ignore_errors=True)
+        shutil.rmtree(tmp_path / 'port', ignore_errors=True)
+
+
+def test_proxy_and_harness_build_the_same_algorithm(tmp_path):
+    """One builder behind both: a harness-built SupOnly with the proxy's
+    iters_per_epoch, fed the proxy loader's batches, takes the proxy-built
+    one's steps exactly."""
+    sub = tmp_path / 'sub.txt'
+    sub.write_text('')
+    config = _config(tmp_path, sub, ssl_algorithm='ssl_null',
+                     sublabeled_path='', ignore_unlabeled=True,
+                     unlabeled_batch_size=0, synthetic_samples=8,
+                     im_size=32, num_workers=0, out_path='')
+    proxy = _port_proxy(config)
+    algo = harness.build_algorithm(proxy.args, device='cpu',
+                                   iters_per_epoch=len(proxy.train_loader))
+    for key, module in proxy.ssl_algorithm.modules.items():
+        for a, b in zip(module.state_dict().values(),
+                        algo.modules[key].state_dict().values()):
+            assert torch.equal(a, b)
+    for batch in proxy.train_loader:
+        ours = proxy.ssl_algorithm.train_step(batch)
+        theirs = algo.train_step(batch)
+        for key in ours:
+            assert float(ours[key]) == float(theirs[key]), key
+
+
+@pytest.mark.parametrize('flag,value,item', [
+    ('steps_per_dispatch', 4, 'A4'), ('eager_ingest', True, 'A4'),
+    ('spatial_val', True, 'A4'), ('spatial_train', 2, 'A4'),
+    ('distributed', True, 'A4'), ('profile_dir', 'prof', 'A4'),
+    ('profile_steps', 3, 'A4'), ('visualize', True, 'A2b'),
+    ('native_augment', True, 'A2b'),
+    ('decoded_cache', True, 'A2b'), ('u8_transfer', True, 'A2b'),
+    ('trainset', {'pascal_voc_aug': ['voc']}, 'A2b'),
+    ('valset', {'pascal_voc_ori': ['voc']}, 'A2b'),
+])
+def test_unported_flags_and_datasets_stop(tmp_path, flag, value, item):
+    sub = tmp_path / 'sub.txt'
+    sub.write_text('synthetic_00000\nsynthetic_00002\n')
+    config = _config(tmp_path, sub, **{flag: value})
+    with pytest.raises(logger.FatalError) as err:
+        pixelssl_tpu_torch.run_script(config, sseg,
+                                      sseg.SemanticSegmentationProxy,
+                                      device='cpu', cli_override=False)
+    assert 'ROADMAP ' + item in str(err.value)
+
+
+def test_run_script_help_lists_every_flag(monkeypatch, capsys):
+    monkeypatch.setattr(sys, 'argv', ['script', '--help'])
+    with pytest.raises(SystemExit) as err:
+        pixelssl_tpu_torch.run_script({'ssl_algorithm': 'ssl_mt'}, sseg,
+                                      sseg.SemanticSegmentationProxy)
+    assert err.value.code == 0
+    out = capsys.readouterr().out
+    for flag in ('--exact-val', '--auto-resume', '--cons-scale',
+                 '--synthetic-samples', '--u8-transfer', '--num-classes'):
+        assert flag in out, flag
