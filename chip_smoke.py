@@ -58,9 +58,33 @@ Phases, each printing a line as it ends:
     algorithms in another build);
 11. the script path of GCT: the same with
     ``deeplabv2_pascalvoc_1-8_sslgct.py``, 1 epoch of 3 iterations; every
-    loss finite and the blur kernel launched 6 times an iteration.
+    loss finite and the blur kernel launched 6 times an iteration;
+12. three AdvSSL, S4L and CutMix steps at ResNet-10 / 64 px in float32 on
+    the card and on the CPU from the same weights, batch and draws (S4L's
+    angles, CutMix's box masks); the limits of phase 6, the largest
+    relative difference printed;
+13. AdvSSL, S4L and CutMix at full width, batch 4 + 4 (S4L doubles it to
+    16), three timed steps each: AdvSSL and S4L with the flags of their
+    1-8 scripts, CutMix with the PSPNet 1-8 script's and
+    ``cons_threshold`` 0.05; then one more CutMix step, untimed, that
+    reads the confidence at 0.05 and at the recipe's 0.97; every metric
+    finite, the losses of ``NEW_ALGOS`` > 0, no
+    blur launch; one AdvSSL and one S4L step under ``torch.profiler``, and
+    the discriminator's kernel time at the AdvSSL step's shapes beside the
+    step's;
+14. ``validate`` of each of the three (scores in [0, 1]), and a
+    checkpoint of each loaded into a fresh build (modules and optimizer
+    states equal: D and its Adam state, the rotation head, the teacher)
+    and refused by another of them;
+15. the 1-8 AdvSSL and S4L scripts through ``run_script`` at full width on
+    synthetic data, batch 2 + 2, 1 epoch of 3 iterations, validation and
+    ``checkpoint_1.pth``; a rescore of the S4L run from it reproduces its
+    val scores (atol 1e-4).
 
-Phases 5, 7, 8, 10 and 11 print their step times and peak memory.
+Phases 5, 7, 8, 10, 11, 13 and 15 print their step times and peak memory
+(the harness phases also the peak over the steps after the first, which
+leaves out cuDNN's autotuning of new shapes), and the run its total wall
+time and each phase's.
 Then one JSON line with the kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
 result; so does a host without CUDA or a directory without the port. It
@@ -181,7 +205,7 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/11] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/15] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
     return card
@@ -191,7 +215,7 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/11] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/15] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -205,7 +229,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/11] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/15] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -233,7 +257,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/11] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/15] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -276,7 +300,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/11] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/15] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -295,6 +319,7 @@ def timed_steps(algo, batch, steps, tag, what, positive):
     torch.cuda.reset_peak_memory_stats()
     blur.launches = 0
     history, step_ms = [], []
+    peak_first = 0
     for s in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -316,15 +341,21 @@ def timed_steps(algo, batch, steps, tag, what, positive):
             if not values[k] > 0:
                 raise AssertionError('{0} = {1} at step {2}'.format(
                     k, values[k], s))
+        if s == 0:  # step 0's peak holds cuDNN's autotuning of new shapes
+            peak_first = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
     launches = blur.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    later_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gib = max(peak_first / 2 ** 30, later_gib)
     if algo.state.step != steps:
         raise AssertionError('state.step {0} != {1}'.format(
             algo.state.step, steps))
     say('{0} {1} {2} steps, state.step {3}, blur launches {4}, step ms {5}, '
-        'peak memory {6:.2f} GiB'.format(
+        'peak memory {6:.2f} GiB ({7:.2f} GiB over the steps after the '
+        'first)'.format(
             tag, what, steps, algo.state.step, launches,
-            ' '.join('{0:.1f}'.format(t) for t in step_ms), peak_gib))
+            ' '.join('{0:.1f}'.format(t) for t in step_ms), peak_gib,
+            later_gib))
     return history, step_ms, launches
 
 
@@ -357,9 +388,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/11]', 'GCT')
+    algo, batch = build_full_width(args, '[5/15]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/11]', 'GCT',
+        algo, batch, steps, '[5/15]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -423,7 +454,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/11] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/15] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -435,59 +466,69 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/11] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/15] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
-def profile_step(algo, batch, step_ms, top=10):
-    """One train step under ``torch.profiler``: the device time of each
-    CUDA kernel summed by name, the ``top`` largest printed, and the
-    kernels' total beside the median of the timed steps after the first
-    (the device's busy share of a step)."""
-    import statistics
-
+def profile_kernels(fn):
+    """``fn()`` under ``torch.profiler``: its CUDA kernels (the device time
+    of each summed by name), largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        algo.train_step(batch)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and
               not getattr(e, 'is_user_annotation', False)]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return events
+
+
+def profile_step(algo, batch, step_ms, tag, what, top=10):
+    """One train step under ``torch.profiler``: the ``top`` CUDA kernels
+    with the most device time, and the kernels' total beside the median of
+    the timed steps after the first (the device's busy share of a step).
+    Returns the total in ms (None if the profiler saw no device time)."""
+    import statistics
+
+    events = profile_kernels(lambda: algo.train_step(batch))
     total_us = sum(e.self_device_time_total for e in events)
     if not events or total_us <= 0:
-        say('[7/11] MT step profile: the profiler recorded no device time')
-        return
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        say('{0} {1} step profile: the profiler recorded no device '
+            'time'.format(tag, what))
+        return None
     steady_ms = statistics.median(step_ms[1:])
-    say('[7/11] MT step profile: {0:.3f} ms of device time in {1} kernel '
-        'launches ({2} distinct kernels), {3:.1f}% of a {4:.1f} ms step '
-        '(median of the timed steps after the first); top {5}:'.format(
-            total_us / 1e3, sum(e.count for e in events), len(events),
-            100.0 * total_us / 1e3 / steady_ms, steady_ms, top))
+    say('{0} {1} step profile: {2:.3f} ms of device time in {3} kernel '
+        'launches ({4} distinct kernels), {5:.1f}% of a {6:.1f} ms step '
+        '(median of the timed steps after the first); top {7}:'.format(
+            tag, what, total_us / 1e3, sum(e.count for e in events),
+            len(events), 100.0 * total_us / 1e3 / steady_ms, steady_ms,
+            top))
     for e in events[:top]:
-        say('[7/11]   {0:8.3f} ms {1:5.1f}% x{2:<4} {3}'.format(
-            e.self_device_time_total / 1e3,
+        say('{0}   {1:8.3f} ms {2:5.1f}% x{3:<4} {4}'.format(
+            tag, e.self_device_time_total / 1e3,
             100.0 * e.self_device_time_total / total_us, e.count,
             e.key[:150]))
+    return total_us / 1e3
 
 
 def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/11]', 'MT')
+    algo, batch = build_full_width(args, '[7/15]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/11]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/15]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms)
+    profile_step(algo, batch, step_ms, '[7/15]', 'MT')
     return algo
 
 
@@ -495,8 +536,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/11]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/11]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/15]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/15]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -527,7 +568,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/11] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/15] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -555,20 +596,22 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/11] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/15] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
 
 # the script phases: samples of the synthetic set (every other one
 # labeled) and the iterations an epoch that they give at batch 2 + 2
-SCRIPT_SAMPLES = {'ssl_mt': 20, 'ssl_gct': 12}
-SCRIPT_EPOCHS = {'ssl_mt': 2, 'ssl_gct': 1}
+SCRIPT_SAMPLES = {'ssl_mt': 20, 'ssl_gct': 12, 'ssl_adv': 12, 'ssl_s4l': 12}
+SCRIPT_EPOCHS = {'ssl_mt': 2, 'ssl_gct': 1, 'ssl_adv': 1, 'ssl_s4l': 1}
 RESCORE_ATOL = 1e-4
 
 
 SCRIPT_MT = 'deeplabv2_pascalvoc_1-8_sslmt.py'
 SCRIPT_GCT = 'deeplabv2_pascalvoc_1-8_sslgct.py'
+SCRIPT_ADV = 'deeplabv2_pascalvoc_1-8_ssladv.py'
+SCRIPT_S4L = 'deeplabv2_pascalvoc_1-8_ssls4l.py'
 
 
 def load_script_config(script):
@@ -711,10 +754,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    import pixelssl_tpu_torch
-    from pixelssl_tpu_torch.tasks import sseg
-
-    tag = '[10/11]'
+    tag = '[10/15]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -739,25 +779,36 @@ def phase_script_mt():
             'card: {1} ms'.format(
                 tag, ' '.join('{0:.1f}'.format(t) for t in after)))
 
-        trained = [r for r in records if r['phase'] == 'val'][-1]
-        ckpt = os.path.join(proxy.args.checkpoint_path, 'checkpoint_2.pth')
-        rescore = dict(config, validation=True, resume=ckpt)
-        pixelssl_tpu_torch.run_script(
-            rescore, sseg, sseg.SemanticSegmentationProxy, device='cuda',
-            cli_override=False)
-        rescored = read_records(config)[-1]
-        keys = [k for k in trained if 'metric' in k or k.endswith('_loss')]
-        if rescored['phase'] != 'val' or sorted(keys) != sorted(
-                k for k in rescored if 'metric' in k or k.endswith('_loss')):
-            raise AssertionError('rescore record {0}'.format(rescored))
-        diff = max(abs(rescored[k] - trained[k]) for k in keys)
-        say('{0} rescore from checkpoint_2.pth: {1} scores, largest '
-            'difference from the training run {2:.3g} (atol {3:g})'.format(
-                tag, len(keys), diff, RESCORE_ATOL))
-        if not diff <= RESCORE_ATOL:
-            raise AssertionError('rescore differs by {0}'.format(diff))
+        rescore_matches(tag, config, proxy, records)
         del proxy
     no_workers_left(tag)
+
+
+def rescore_matches(tag, config, proxy, records):
+    """``run_script`` in validation mode from the run's last checkpoint:
+    its scores and losses must equal the training run's last validation
+    within ``RESCORE_ATOL``."""
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.tasks import sseg
+
+    trained = [r for r in records if r['phase'] == 'val'][-1]
+    name = 'checkpoint_{0}.pth'.format(config['epochs'])
+    ckpt = os.path.join(proxy.args.checkpoint_path, name)
+    rescore = dict(config, validation=True, resume=ckpt)
+    pixelssl_tpu_torch.run_script(
+        rescore, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+        cli_override=False)
+    rescored = read_records(config)[-1]
+    keys = [k for k in trained if 'metric' in k or k.endswith('_loss')]
+    if rescored['phase'] != 'val' or sorted(keys) != sorted(
+            k for k in rescored if 'metric' in k or k.endswith('_loss')):
+        raise AssertionError('rescore record {0}'.format(rescored))
+    diff = max(abs(rescored[k] - trained[k]) for k in keys)
+    say('{0} rescore from {1}: {2} scores, largest difference from the '
+        'training run {3:.3g} (atol {4:g})'.format(
+            tag, name, len(keys), diff, RESCORE_ATOL))
+    if not diff <= RESCORE_ATOL:
+        raise AssertionError('rescore differs by {0}'.format(diff))
 
 
 def no_workers_left(tag):
@@ -777,7 +828,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/11]'
+    tag = '[11/15]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -790,6 +841,319 @@ def phase_script_gct():
         del proxy
     no_workers_left(tag)
     return launches
+
+
+# the AdvSSL, S4L and CutMix phases (12-15). The AdvSSL and S4L flags are
+# those of their 1-8 scripts; CutMix's those of the PSPNet 1-8 script
+# (scripts/pspnet_pascalvoc_1-8_sslcutmix.py) with cons_threshold 0.05, so
+# that at a random init the confidence, and with it cons_loss, is not 0
+# (the recipe's 0.97 is printed beside it). Each lists the losses that
+# must be > 0 (__graft_entry__.py:40-70).
+ADV_CONFIG = dict(
+    NULL_CONFIG, adv_for_labeled=True, labeled_adv_scale=0.01,
+    unlabeled_adv_scale=0.001, discriminator_lr=1e-4,
+    unlabeled_for_discriminator=True)
+S4L_CONFIG = dict(NULL_CONFIG, rotated_sup_scale=0.1, rotation_scale=0.1)
+CUTMIX_THRESHOLD = 0.97
+CUTMIX_CONFIG = dict(
+    NULL_CONFIG, cons_type='mse', cons_scale=20.0, cons_rampup_epochs=0,
+    cons_threshold=0.05, ema_decay=0.99, mask_prop_range=(0.5, 0.5))
+NEW_ALGOS = (
+    ('ssl_adv', 'AdvSSL', ADV_CONFIG,
+     ('task_loss', 'labeled_adv_loss', 'unlabeled_adv_loss', 'fake_d_loss',
+      'real_d_loss')),
+    ('ssl_s4l', 'S4L', S4L_CONFIG,
+     ('unrotated_task_loss', 'rotated_task_loss', 'rotation_loss')),
+    ('ssl_cutmix', 'CutMix', CUTMIX_CONFIG, ('task_loss', 'cons_loss')),
+)
+
+
+def inject_draws(algo, seed, steps):
+    """Fix the per-step draws of S4L (angles) and CutMix (box masks) from
+    numpy and a CPU generator, so that the card and the CPU take the same
+    ones."""
+    import numpy as np
+    import torch
+    from pixelssl_tpu_torch.ops import boxmask
+
+    if algo.NAME == 'ssl_s4l':
+        angles = np.random.default_rng(seed).integers(
+            1, 4, (steps, algo.args.batch_size))
+        algo._draw_angles = lambda n: torch.from_numpy(
+            angles[algo.state.step, :n]).to(algo.device)
+    elif algo.NAME == 'ssl_cutmix':
+        def draw(n, shape):
+            generator = torch.Generator().manual_seed(seed + algo.state.step)
+            return boxmask.box_masks(generator, n, shape,
+                                     algo.args.mask_prop_range).to(
+                                         algo.device)
+        algo._draw_masks = draw
+
+
+def phase_small_new(seed, steps):
+    """AdvSSL, S4L and CutMix at ResNet-10 / 64 px in float32, ``steps``
+    steps each on the card and on the CPU from the same weights, batch and
+    draws; the losses must agree with phase 6's limits (rtol 2e-3;
+    cons_loss rtol 2e-2, atol 1e-6), rotation_acc exactly."""
+    from pixelssl_tpu_torch import harness
+
+    small = dict(backbone='resnet10', im_size=64, num_classes=5, epochs=20,
+                 bf16=False, seed=seed, lr=5e-5, batch_size=4,
+                 unlabeled_batch_size=2)
+    for algo_name, what, config, _ in NEW_ALGOS:
+        args = harness.default_args(algo_name, **dict(config, **small))
+        rows = {}
+        for device in ('cpu', 'cuda'):
+            algo = harness.build_algorithm(args, device=device,
+                                           iters_per_epoch=2)
+            inject_draws(algo, seed, steps)
+            batch = harness.synthetic_batch(args, device=device, seed=seed)
+            rows[device] = [{k: float(v) for k, v in
+                             algo.train_step(batch).items()}
+                            for _ in range(steps)]
+        worst = 0.0
+        for s, (ref_row, got_row) in enumerate(zip(rows['cpu'],
+                                                   rows['cuda'])):
+            for key, ref in ref_row.items():
+                rtol, atol = {'cons_loss': (2e-2, 1e-6),
+                              'rotation_acc': (0.0, 0.0)}.get(key,
+                                                              (2e-3, 1e-6))
+                got = got_row[key]
+                worst = max(worst, abs(got - ref) / max(abs(ref), 1e-12))
+                if not math.isclose(got, ref, rel_tol=rtol, abs_tol=atol):
+                    raise AssertionError(
+                        'small {0} step {1}: {2} on the card {3} vs CPU '
+                        '{4}'.format(algo_name, s, key, got, ref))
+        say('[12/15] small {0} ({1} steps, ResNet-10, 64 px) card vs CPU '
+            'agree, largest relative metric difference {2:.3g}; last step: '
+            '{3}'.format(what, steps, worst, '  '.join(
+                '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
+                                             rows['cpu'][-1][k])
+                for k in sorted(rows['cpu'][-1]))))
+
+
+def cutmix_confidences(algo, thresholds):
+    """Record, on the next steps, the share of mixed teacher pixels whose
+    largest class probability exceeds each threshold; returns the list
+    that collects one {threshold: share} a step. Each read waits for the
+    card, so the steps it watches are not timed."""
+    import torch
+
+    seen = []
+    draw, teacher_forward = algo._draw_masks, algo._teacher_forward
+    masks = []
+
+    def draw_and_keep(n, shape):
+        masks.append(draw(n, shape))
+        return masks[-1]
+
+    def forward_and_measure(inp):
+        resulter = teacher_forward(inp)
+        act = resulter['activated_pred'][0]
+        half = act.shape[0] // 2
+        mask = masks[-1]
+        top = (mask * act[:half] + (1.0 - mask) * act[half:]).amax(dim=1)
+        with torch.no_grad():
+            seen.append({t: float((top > t).float().mean())
+                         for t in thresholds})
+        return resulter
+
+    algo._draw_masks = draw_and_keep
+    algo._teacher_forward = forward_and_measure
+    return seen
+
+
+def d_share(algo, batch, step_kernel_ms):
+    """The discriminator's work of one AdvSSL step, profiled on its own
+    at the step's shapes on a copy of D: its forward on the batch's
+    activated prediction and the backward to that input (step 1), its
+    forward on [fake ++ real] rows, the backward to its parameters and an
+    Adam step (step 2). Prints its kernel time beside the step's."""
+    import copy
+
+    import torch
+
+    lbs = algo.ctx.lbs
+    n_fake = (lbs + algo.ctx.ubs if algo.args.unlabeled_for_discriminator
+              else lbs)
+    with torch.no_grad():
+        act = algo.model(tuple(batch['inp']))['activated_pred'][0]
+    real = algo.ctx.task_func.ssladv_convert_task_gt_to_fcd_input(
+        batch['gt'][0][:lbs])
+    d_model = copy.deepcopy(algo.d_model)
+    d_opt = torch.optim.Adam(d_model.parameters(), lr=1e-4,
+                             betas=(0.9, 0.99))
+
+    def work():
+        x = act.clone().requires_grad_()
+        d_model(x).mean().backward(inputs=[x])
+        d_opt.zero_grad(set_to_none=True)
+        d_model(torch.cat([act[:n_fake], real])).mean().backward(
+            inputs=list(d_model.parameters()))
+        d_opt.step()
+
+    work()
+    events = profile_kernels(work)
+    d_ms = sum(e.self_device_time_total for e in events) / 1e3
+    say('[13/15] AdvSSL discriminator alone (forward on {0} rows and '
+        'backward to its input; forward on {1}+{2} rows, backward to its '
+        'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
+            act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
+            '' if not step_kernel_ms else
+            ', {0:.1f}% of the AdvSSL step\'s {1:.3f} ms'.format(
+                100.0 * d_ms / step_kernel_ms, step_kernel_ms)))
+
+
+def phase_new_full_width(seed, steps):
+    """AdvSSL, S4L and CutMix at full width, batch 4 + 4: ``steps`` timed
+    steps each; one AdvSSL and one S4L step profiled, and D's share of
+    AdvSSL's kernel time. Returns the algorithms."""
+    import torch
+
+    algos = {}
+    for algo_name, what, config, positive in NEW_ALGOS:
+        args = full_width_args(algo_name, seed, batch_size=8,
+                               unlabeled_batch_size=4, **config)
+        algo, batch = build_full_width(args, '[13/15]', what)
+        history, step_ms, launches = timed_steps(
+            algo, batch, steps, '[13/15]', what, positive)
+        if launches != 0:
+            raise AssertionError('{0} launched the blur kernel {1} '
+                                 'times'.format(what, launches))
+        if algo_name == 'ssl_s4l':
+            if not all(0.0 <= h['rotation_acc'] <= 100.0 for h in history):
+                raise AssertionError('rotation_acc {0}'.format(history))
+        if algo_name == 'ssl_cutmix':
+            # one more step, untimed: the confidence read waits for the
+            # card between the teacher's forward and the student's
+            seen = cutmix_confidences(
+                algo, (args.cons_threshold, CUTMIX_THRESHOLD))
+            cons_loss = float(algo.train_step(batch)['cons_loss'])
+            del algo._draw_masks, algo._teacher_forward  # the class's again
+            say('[13/15] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+                'confidence of the mixed teacher pixels at threshold {2:g} '
+                '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
+                    steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
+                    seen[0][args.cons_threshold], seen[0][CUTMIX_THRESHOLD]))
+            if not cons_loss > 0:
+                raise AssertionError('CutMix cons_loss {0} on the untimed '
+                                     'step'.format(cons_loss))
+        if algo_name in ('ssl_adv', 'ssl_s4l'):
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/15]', what)
+            if algo_name == 'ssl_adv':
+                d_share(algo, batch, kernel_ms)
+        algos[algo_name] = algo
+        torch.cuda.empty_cache()
+    return algos
+
+
+def phase_new_validate_checkpoint(algos, seed):
+    """``validate`` of each of the three on two synthetic batches of 4 at
+    321 px (scores in [0, 1], losses finite); a checkpoint of each saved,
+    loaded into a fresh build of the same algorithm (every module and
+    optimizer state equal: D and its Adam state, the rotation head, the
+    teacher) and refused by another algorithm."""
+    import tempfile
+
+    import torch
+    from pixelssl_tpu_torch import harness
+    from pixelssl_tpu_torch.utils import logger
+
+    configs = {name: config for name, _, config, _ in NEW_ALGOS}
+    refusers = {'ssl_adv': 'ssl_s4l', 'ssl_s4l': 'ssl_cutmix',
+                'ssl_cutmix': 'ssl_adv'}
+    with tempfile.TemporaryDirectory() as tmp:
+        for algo_name, algo in algos.items():
+            scores = algo.validate(harness.synthetic_val_batches(
+                algo.args, 2, seed=seed + 1), epoch=0)
+            losses = {k: m.avg for k, m in algo.meters.items()
+                      if k.endswith('_loss')}
+            bad = {k: v for k, v in scores.items() if not 0.0 <= v <= 1.0}
+            if not scores or bad or not losses or not all(
+                    math.isfinite(v) for v in losses.values()):
+                raise AssertionError('{0} validation: {1} {2}'.format(
+                    algo_name, scores, losses))
+            say('[14/15] {0} validate (2 batches of 4 @321): {1}'.format(
+                algo_name, '  '.join(
+                    '{0} {1:.5f}'.format(k, float(v)) for k, v in sorted(
+                        dict(scores, **losses).items())
+                    if 'mIoU' in k or k.endswith('_loss'))))
+
+            path = algo.save_checkpoint(
+                epoch=0, path=os.path.join(tmp, algo_name + '.pth'))
+            fresh = harness.build_algorithm(
+                full_width_args(algo_name, seed + 1, batch_size=8,
+                                unlabeled_batch_size=4,
+                                **configs[algo_name]),
+                iters_per_epoch=ITERS_PER_EPOCH)
+            fresh.load_checkpoint(path)
+            compared = 0
+            for key, module in algo.modules.items():
+                theirs = fresh.modules[key].state_dict()
+                for name, value in module.state_dict().items():
+                    if not torch.equal(value, theirs[name]):
+                        raise AssertionError('loaded {0}.{1} differs'.format(
+                            key, name))
+                    compared += 1
+            for key, opt in algo.optimizers.items():
+                ours, theirs = opt.state_dict(), \
+                    fresh.optimizers[key].state_dict()
+                for pid, st in ours['state'].items():
+                    for name, value in st.items():
+                        other = theirs['state'][pid][name]
+                        if torch.as_tensor(value).device != torch.as_tensor(
+                                other).device or not torch.equal(
+                                    torch.as_tensor(value).cpu(),
+                                    torch.as_tensor(other).cpu()):
+                            raise AssertionError(
+                                'loaded {0} state {1}.{2} differs'.format(
+                                    key, pid, name))
+                        compared += 1
+            if fresh.state.step != algo.state.step:
+                raise AssertionError('loaded step {0} != {1}'.format(
+                    fresh.state.step, algo.state.step))
+            del fresh
+            other = refusers[algo_name]
+            try:
+                algos[other].load_checkpoint(path)
+            except logger.FatalError:
+                pass
+            else:
+                raise AssertionError('{0} loaded a checkpoint of {1}'.format(
+                    other, algo_name))
+            say('[14/15] {0} checkpoint of {1:.0f} MiB ({2} modules: {3}; '
+                'optimizers: {4}) loaded into a fresh build, {5} tensors '
+                'equal, step {6}; refused by {7}'.format(
+                    algo_name, os.path.getsize(path) / 2 ** 20,
+                    len(algo.modules), ', '.join(algo.modules),
+                    ', '.join(algo.optimizers), compared, algo.state.step,
+                    other))
+            torch.cuda.empty_cache()
+
+
+def phase_script_new():
+    """The 1-8 AdvSSL and S4L scripts through ``run_script`` at full width
+    on synthetic data (1 epoch of 3 iterations, validation,
+    ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
+    import tempfile
+
+    tag = '[15/15]'
+    for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
+                              (SCRIPT_S4L, 'ssl_s4l')):
+        with tempfile.TemporaryDirectory() as out:
+            config, proxy, records, launches = run_script_phase(
+                tag, script, algo_name, out)
+            if launches != 0:
+                raise AssertionError('{0} launched the blur kernel {1} '
+                                     'times'.format(algo_name, launches))
+            ckpt = os.path.join(proxy.args.checkpoint_path,
+                                'checkpoint_1.pth')
+            if not os.path.isfile(ckpt):
+                raise AssertionError('no {0}'.format(ckpt))
+            if algo_name == 'ssl_s4l':
+                rescore_matches(tag, config, proxy, records)
+            del proxy
+        no_workers_left(tag)
 
 
 def main(argv=None):
@@ -820,20 +1184,34 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
 
+    t_start = time.perf_counter()
+    walls = []
+
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls.append('{0} {1:.1f}'.format(label, time.perf_counter() - t0))
+        return out
+
     try:
-        card = phase_device()
-        phase_build()
-        rows, floor_ms = phase_kernel(opts.seed,
-                                      script_blur_cases(SCRIPT_GCT))
-        phase_small_reference(opts.seed)
-        launches = phase_main_path(opts.seed, STEPS)
-        phase_small_mt_null(opts.seed, STEPS)
-        mt_algo = phase_mt(opts.seed, STEPS)
-        null_algo = phase_null(opts.seed, STEPS)
-        phase_validate_checkpoint(mt_algo, null_algo, opts.seed)
+        card = run('1', phase_device)
+        run('2', phase_build)
+        rows, floor_ms = run('3', phase_kernel, opts.seed,
+                             script_blur_cases(SCRIPT_GCT))
+        run('4', phase_small_reference, opts.seed)
+        launches = run('5', phase_main_path, opts.seed, STEPS)
+        run('6', phase_small_mt_null, opts.seed, STEPS)
+        mt_algo = run('7', phase_mt, opts.seed, STEPS)
+        null_algo = run('8', phase_null, opts.seed, STEPS)
+        run('9', phase_validate_checkpoint, mt_algo, null_algo, opts.seed)
         del mt_algo, null_algo
-        phase_script_mt()
-        script_launches = phase_script_gct()
+        run('10', phase_script_mt)
+        script_launches = run('11', phase_script_gct)
+        run('12', phase_small_new, opts.seed, STEPS)
+        new_algos = run('13', phase_new_full_width, opts.seed, STEPS)
+        run('14', phase_new_validate_checkpoint, new_algos, opts.seed)
+        del new_algos
+        run('15', phase_script_new)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -879,6 +1257,8 @@ def main(argv=None):
         'script_gct': script_step,
         'calls': rows,
     }
+    say('chip_smoke: all 15 phases passed in {0:.1f} s (each phase\'s wall '
+        's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))
     say(json.dumps({'ok': True, 'device': {

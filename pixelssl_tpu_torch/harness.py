@@ -8,8 +8,10 @@ without the proxy, the CLI or data on disk.
     scores = algo.validate(harness.synthetic_val_batches(args, 2), epoch=0)
     algo.save_checkpoint(epoch=0, path='mt.pth')
 
-Every entry point runs on the card unless the caller passes
-``device='cpu'``.
+Every algorithm of ``ssl_algorithm.SSL_ALGORITHMS`` builds this way, each
+with its own flags as overrides (``harness.default_args('ssl_adv',
+adv_for_labeled=True, ...)``). Every entry point runs on the card unless
+the caller passes ``device='cpu'``.
 """
 
 import numpy as np

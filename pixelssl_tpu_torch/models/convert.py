@@ -4,10 +4,13 @@
 ``from_jax(variables)`` maps the JAX package's flax variables, given as
 nested dicts of numpy arrays (``{'params': ..., 'batch_stats': ...}``), onto
 the ``state_dict`` of this package's module of the same structure:
-DeepLab-v2 (bare, or under the sseg task model's ``net``) and the flaw
-detector.
+DeepLab-v2 (bare, or under the sseg task model's ``net``), the flaw
+detector, the FC discriminator (``conv1``..``conv4``, ``classifier``) and
+S4L's wrapped model (the task model under ``task``, the rotation head
+under ``rc``).
 
-* conv kernels HWIO -> OIHW, ``kernel`` -> ``weight``;
+* conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in],
+  ``kernel`` -> ``weight``;
 * BN ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
   ``running_mean``/``running_var``, plus a zero ``num_batches_tracked``;
 * module names: ``backbone_net`` -> ``backbone``, ``layerX_Y`` ->
@@ -60,6 +63,8 @@ def from_jax(variables):
         value = np.asarray(value)
         if path[-1] == 'kernel' and value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path[-1] == 'kernel' and value.ndim == 2:
+            value = value.T  # Dense [in, out] -> Linear [out, in]
         state[_torch_key(path, _PARAM_LEAVES)] = torch.tensor(
             value, dtype=torch.float32)
     for path, value in _flatten(variables.get('batch_stats', {})):

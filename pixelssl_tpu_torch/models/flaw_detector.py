@@ -11,12 +11,11 @@ task input and the task prediction. With ``bf16`` the convolutions run
 under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
 """
 
-import math
-
 import torch
 import torch.nn as nn
 
-from .layers import SyncBatchNorm, resize_bilinear, leaky_relu_02
+from .layers import (SyncBatchNorm, lecun_normal_, resize_bilinear,
+                     leaky_relu_02)
 
 
 class IBNorm(nn.Module):
@@ -57,15 +56,11 @@ class FlawDetector(nn.Module):
     def init_weights(self, generator=None):
         """LeCun normal weights and zero biases (the JAX package's flax
         defaults), BN scale 1 and shift 0."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                    m.weight.normal_(0.0, math.sqrt(1.0 / fan_in),
-                                     generator=generator)
-                    m.bias.zero_()
-                elif isinstance(m, nn.BatchNorm2d):
-                    m.reset_parameters()
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun_normal_(m, generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
 
     def forward(self, task_inp, task_pred):
         x = torch.cat(tuple(task_inp) + (task_pred,), dim=1)

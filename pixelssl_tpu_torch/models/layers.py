@@ -9,8 +9,13 @@ NCHW.
   is the same two-tap arithmetic as the JAX interpolation matrices.
 * ``leaky_relu_02``: plain LeakyReLU(0.2); the JAX custom vjp was a
   workaround for the TPU compiler.
+* ``lecun_normal_``: the flax ``Conv``/``Dense`` defaults the auxiliary
+  modules start from.
 """
 
+import math
+
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -34,3 +39,12 @@ def resize_bilinear(x, size, align_corners=False):
 
 def leaky_relu_02(x):
     return F.leaky_relu(x, 0.2)
+
+
+def lecun_normal_(layer, generator=None):
+    """Weight ~ normal(0, sqrt(1 / fan_in)) and a zero bias, for a conv or
+    a linear layer."""
+    with torch.no_grad():
+        layer.weight.normal_(0.0, math.sqrt(1.0 / layer.weight[0].numel()),
+                             generator=generator)
+        layer.bias.zero_()

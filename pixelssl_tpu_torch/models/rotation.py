@@ -1,0 +1,45 @@
+"""Rotation classifier for S4L (counterpart of
+``pixelssl_tpu/models/rotation.py``; reference
+pixelssl/ssl_algorithm/ssl_s4l.py:381-400), NCHW.
+
+Two 4x4 stride-2 conv + BN + LeakyReLU(0.2) blocks (C -> C -> 2C), a
+spatial mean, and a linear head ``fc`` over the four angles, in float32.
+The head is named ``fc``, not ``classifier``, so that the task model's 10x
+lr rule never matches it. With ``bf16`` the convolutions and the head run
+under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
+"""
+
+import torch
+import torch.nn as nn
+
+from .layers import SyncBatchNorm, lecun_normal_, leaky_relu_02
+
+
+class RotationClassifier(nn.Module):
+    def __init__(self, in_channels, bf16=False):
+        super(RotationClassifier, self).__init__()
+        self.bf16 = bf16
+        self.conv1 = nn.Conv2d(in_channels, in_channels, 4, stride=2,
+                               padding=1)
+        self.bn1 = SyncBatchNorm(in_channels)
+        self.conv2 = nn.Conv2d(in_channels, in_channels * 2, 4, stride=2,
+                               padding=1)
+        self.bn2 = SyncBatchNorm(in_channels * 2)
+        self.fc = nn.Linear(in_channels * 2, 4)
+
+    def init_weights(self, generator=None):
+        """LeCun normal weights and zero biases (the JAX package's flax
+        defaults), BN scale 1 and shift 0."""
+        for m in (self.conv1, self.conv2, self.fc):
+            lecun_normal_(m, generator)
+        for bn in (self.bn1, self.bn2):
+            bn.reset_parameters()
+
+    def forward(self, x):
+        """[N,C,H,W] -> rotation logits [N,4], float32."""
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.bf16):
+            x = leaky_relu_02(self.bn1(self.conv1(x)))
+            x = leaky_relu_02(self.bn2(self.conv2(x)))
+            x = self.fc(x.mean(dim=(2, 3)))
+        return x.float()

@@ -1,16 +1,27 @@
 """SSL algorithm registry (counterpart of
 ``pixelssl_tpu/ssl_algorithm/__init__.py``); the ported algorithms so far:
-SupOnly, Mean Teacher and GCT."""
+SupOnly, Mean Teacher, AdvSSL, S4L, GCT and CutMix. CCT is not ported
+yet."""
 
 from . import ssl_base  # noqa: F401
-from . import ssl_gct, ssl_mt, ssl_null
+from . import ssl_adv, ssl_cutmix, ssl_gct, ssl_mt, ssl_null, ssl_s4l
 
+# the algorithm-name constants of the JAX registry (its
+# ssl_algorithm/__init__.py:19-27), for the ported algorithms
+SSL_NULL = ssl_null.SSLNULL.NAME
+SSL_MT = ssl_mt.SSLMT.NAME
+SSL_ADV = ssl_adv.SSLADV.NAME
+SSL_S4L = ssl_s4l.SSLS4L.NAME
 SSL_GCT = ssl_gct.SSLGCT.NAME
+SSL_CUTMIX = ssl_cutmix.SSLCUTMIX.NAME
 
 _MODULES = {
     ssl_null.SSLNULL.NAME: ssl_null,
     ssl_mt.SSLMT.NAME: ssl_mt,
+    ssl_adv.SSLADV.NAME: ssl_adv,
+    ssl_s4l.SSLS4L.NAME: ssl_s4l,
     ssl_gct.SSLGCT.NAME: ssl_gct,
+    ssl_cutmix.SSLCUTMIX.NAME: ssl_cutmix,
 }
 
 SSL_ALGORITHMS = sorted(_MODULES.keys())

@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..nn.func import count_params
 from ..task_template.func import METRIC_STR
@@ -285,7 +286,10 @@ class SSLBase(object):
         ``--resume``) into the built algorithm; refuses one that another
         algorithm wrote. Returns its epoch."""
         path = os.path.abspath(path or self.args.resume)
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        # on the host first: ``load_state_dict`` moves each module's and
+        # optimizer's tensors to their parameters' device, and leaves on
+        # the host what a fresh optimizer keeps there (Adam's step count)
+        ckpt = torch.load(path, map_location='cpu', weights_only=True)
         saved_name = ckpt.get('algorithm_name')
         if saved_name != self.NAME:
             logger.log_err('Checkpoint at {0} was saved by SSL algorithm '
@@ -326,3 +330,12 @@ def maybe_bf16(module, enabled):
             if p.dtype == torch.float32:
                 p.data = p.data.to(torch.bfloat16)
     return module
+
+
+def forward_with_float32_params(module, inp, enabled):
+    """``module(inp)``; when ``enabled`` (an EMA teacher stored in bf16),
+    on float32 copies of its parameters."""
+    if not enabled:
+        return module(inp)
+    params = {k: p.float() for k, p in module.named_parameters()}
+    return functional_call(module, params, (inp,))

@@ -27,14 +27,14 @@ forward runs on float32 copies of them.
 import copy
 
 import torch
-from torch.func import functional_call
 
 from ..nn.func import sigmoid_rampup, split_tensor_tuple
 from ..nn.module.gaussian_noise import gaussian_noise
 from ..nn.optimizer import set_lr
 from ..utils import cmd, logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import SSLBase, TaskContext, ema_update, maybe_bf16
+from .ssl_base import (SSLBase, TaskContext, ema_update,
+                       forward_with_float32_params, maybe_bf16)
 
 
 def add_parser_arguments(parser):
@@ -98,10 +98,7 @@ class SSLMT(SSLBase):
         return {'opt': self.opt}
 
     def _teacher_forward(self, inp):
-        if not self.bf16_ema:
-            return self.teacher(inp)
-        params = {k: p.float() for k, p in self.teacher.named_parameters()}
-        return functional_call(self.teacher, params, (inp,))
+        return forward_with_float32_params(self.teacher, inp, self.bf16_ema)
 
     def _noised(self, inp, salt):
         """Noise the first input element (reference ssl_mt.py:337-357);

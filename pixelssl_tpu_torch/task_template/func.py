@@ -27,6 +27,21 @@ class TaskFunc(object):
         ``METRIC_STR``."""
         raise NotImplementedError
 
+    # hooks for ssl_adv (reference func.py:80-145)
+
+    def ssladv_fcd_in_channels(self):
+        """Input channels of the FC discriminator."""
+        logger.log_err('Task does not implement ssladv_fcd_in_channels — '
+                       'required by the ssl_adv algorithm')
+
+    def ssladv_preprocess_fcd_criterion(self, fcd_pred, task_gt, is_real):
+        """(pred, gt) for the discriminator BCE, real or fake."""
+        logger.log_err('Task does not implement ssladv_preprocess_fcd_criterion')
+
+    def ssladv_convert_task_gt_to_fcd_input(self, task_gt):
+        """The GT encoding fed to the discriminator as its real sample."""
+        logger.log_err('Task does not implement ssladv_convert_task_gt_to_fcd_input')
+
     # hooks for ssl_gct (reference func.py:148-183)
 
     def sslgct_fd_in_channels(self):
@@ -36,3 +51,9 @@ class TaskFunc(object):
     def sslgct_prepare_task_gt_for_fdgt(self, task_gt):
         """Encode GT for the flaw-detector GT generator."""
         logger.log_err('Task does not implement sslgct_prepare_task_gt_for_fdgt')
+
+    # hooks for ssl_s4l (reference func.py:186-202)
+
+    def ssls4l_rc_in_channels(self):
+        """Input channels of the rotation classifier."""
+        logger.log_err('Task does not implement ssls4l_rc_in_channels')

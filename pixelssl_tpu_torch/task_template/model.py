@@ -34,10 +34,14 @@ class TaskModel(nn.Module):
         return 1.0
 
     def param_groups(self):
-        """One optimizer group per distinct multiplier, in first-seen order."""
-        groups = {}
-        for name, p in self.named_parameters():
-            mult = self.lr_mult(name)
-            groups.setdefault(mult, []).append(p)
-        return [{'params': ps, 'lr_mult': m} for m, ps in groups.items()]
+        return group_by_lr_mult(self.named_parameters(), self.lr_mult)
+
+
+def group_by_lr_mult(named_parameters, lr_mult):
+    """One optimizer group per distinct ``lr_mult(name)``, in first-seen
+    order."""
+    groups = {}
+    for name, p in named_parameters:
+        groups.setdefault(lr_mult(name), []).append(p)
+    return [{'params': ps, 'lr_mult': m} for m, ps in groups.items()]
 

@@ -1,6 +1,9 @@
 """Semantic-segmentation task hooks (counterpart of
 ``pixelssl_tpu/tasks/sseg/func.py``): the validation metrics (reference
-task/sseg/func.py:36-80) and the GCT hooks (func.py:176-192).
+task/sseg/func.py:36-80) and the AdvSSL, GCT and S4L hooks (JAX
+func.py:126-152,180-181). The maps are NCHW: a one-hot GT is [N,C,H,W] and
+a discriminator's confidence map [N,1,H,W], where the JAX hooks take and
+give NHWC.
 
 ``metrics`` builds the confusion matrix on the device; only the C x C
 counts cross to the host. The ``--u8-transfer`` form of ``device_prep``
@@ -39,6 +42,39 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
             meters.reset(key)
             meters.update(key, scores[name])
 
+    def ssladv_fcd_in_channels(self):
+        return self.args.num_classes
+
+    def ssladv_preprocess_fcd_criterion(self, fcd_pred, task_gt, is_real):
+        """(masked logits, target) for the discriminator's BCE:
+        ``fcd_pred`` [N,1,H,W], ``task_gt`` [N,H,W] labels or None. Both
+        are zero on ``ignore_index`` pixels, so the BCE counts each of them
+        as log 2, as the JAX hook does."""
+        if task_gt is None:
+            mask = torch.ones_like(fcd_pred)
+        else:
+            mask = (task_gt != self.args.ignore_index)[:, None].to(
+                fcd_pred.dtype)
+        fcd_gt = torch.full_like(fcd_pred, 1.0 if is_real else 0.0) * mask
+        return fcd_pred * mask, fcd_gt
+
+    def ssladv_convert_task_gt_to_fcd_input(self, task_gt):
+        """[N,H,W] labels -> [N,C,H,W] float32 one-hot, the
+        discriminator's real sample. A label outside [0, C), such as
+        ``ignore_index``, gives an all-zero pixel, as ``jax.nn.one_hot``
+        does (``F.one_hot`` would raise on it)."""
+        return self._one_hot(task_gt).permute(0, 3, 1, 2)
+
+    def _one_hot(self, task_gt, keep=None):
+        """[N,H,W] labels -> [N,H,W,C] float32 one-hot, zero where the
+        label is outside [0, C) or ``keep`` is False."""
+        num_classes = self.args.num_classes
+        valid = (task_gt >= 0) & (task_gt < num_classes)
+        if keep is not None:
+            valid = valid & keep
+        safe = torch.where(valid, task_gt, torch.zeros_like(task_gt)).long()
+        return F.one_hot(safe, num_classes).float() * valid[..., None].float()
+
     def sslgct_fd_in_channels(self):
         return self.args.num_classes + 3
 
@@ -46,9 +82,7 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
         """[N,H,W] labels -> [N,H,W,C] float32 one-hot (NHWC, as the JAX
         hook returns it). Rows at ``ignore_index``, and any label outside
         [0, C), are all zero."""
-        num_classes = self.args.num_classes
-        keep = ((task_gt >= 0) & (task_gt < num_classes) &
-                (task_gt != self.args.ignore_index))
-        safe = torch.where(keep, task_gt, torch.zeros_like(task_gt)).long()
-        one_hot = F.one_hot(safe, num_classes).float()
-        return one_hot * keep[..., None].float()
+        return self._one_hot(task_gt, task_gt != self.args.ignore_index)
+
+    def ssls4l_rc_in_channels(self):
+        return self.args.num_classes

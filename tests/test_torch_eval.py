@@ -29,8 +29,10 @@ from pixelssl_tpu_torch.ops.confusion import (confusion_matrix,
                                               scores_from_confusion)
 from pixelssl_tpu_torch.utils import logger
 
+from test_torch_adv import ADV_ARGS
 from test_torch_gct import GCT_ARGS, _perturb_stats
 from test_torch_mt import MT_ARGS, one_torch_thread  # noqa: F401
+from test_torch_s4l import S4L_ARGS
 
 NUM_CLASSES = 5
 IM = 64
@@ -40,6 +42,9 @@ ALGO_ARGS = {
     'ssl_null': dict(MT_ARGS, unlabeled_batch_size=0),
     'ssl_mt': dict(MT_ARGS, cons_for_labeled=False),
     'ssl_gct': dict(GCT_ARGS, epochs=20),
+    'ssl_adv': dict(ADV_ARGS, unlabeled_for_discriminator=True),
+    'ssl_s4l': S4L_ARGS,
+    'ssl_cutmix': dict(MT_ARGS, cons_threshold=0.05),
 }
 
 
@@ -161,7 +166,8 @@ def _assert_same_state(a, b):
                     (key, pid, name)
 
 
-@pytest.mark.parametrize('algo_name', ['ssl_null', 'ssl_mt', 'ssl_gct'])
+@pytest.mark.parametrize('algo_name', ['ssl_null', 'ssl_mt', 'ssl_gct',
+                                       'ssl_adv', 'ssl_s4l', 'ssl_cutmix'])
 def test_checkpoint_round_trip(algo_name, tmp_path):
     algo, args = _build(algo_name, im_size=IM)
     algo.train_step(harness.synthetic_batch(args, device='cpu', seed=1))
@@ -198,7 +204,9 @@ def test_resume_is_exact(tmp_path):
 
 
 @pytest.mark.parametrize('saved_by,loaded_into', [('ssl_mt', 'ssl_null'),
-                                                  ('ssl_null', 'ssl_mt')])
+                                                  ('ssl_null', 'ssl_mt'),
+                                                  ('ssl_cutmix', 'ssl_mt'),
+                                                  ('ssl_adv', 'ssl_s4l')])
 def test_checkpoint_name_guard(saved_by, loaded_into, tmp_path):
     algo, _ = _build(saved_by, im_size=32)
     path = algo.save_checkpoint(epoch=0, path=str(tmp_path / 'c.pth'))

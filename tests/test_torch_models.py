@@ -234,3 +234,43 @@ def test_polynomial_lr_and_rampup_match_jax():
                                    float(jax_nnfunc.sigmoid_rampup(
                                        jnp.asarray(step), 10.0)), rtol=1e-6)
     assert nnfunc.sigmoid_rampup(3, 0) == 1.0
+
+
+def test_from_jax_transposes_dense_kernels():
+    """A flax ``Dense`` kernel is [in, out]; the torch ``Linear`` weight
+    [out, in]."""
+    import flax.linen as flax_nn
+
+    x = np.random.default_rng(10).standard_normal((3, 6)).astype(np.float32)
+    dense = flax_nn.Dense(4, name='fc')
+    variables = _to_numpy(dense.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    linear = torch.nn.Linear(6, 4)
+    linear.load_state_dict(from_jax(variables))
+    np.testing.assert_allclose(
+        linear(torch.from_numpy(x)).detach().numpy(),
+        np.asarray(dense.apply(variables, jnp.asarray(x))), atol=1e-6)
+
+
+def test_from_jax_covers_full_width_aux_modules():
+    """Every key and shape of the discriminator and the rotation head at
+    21 classes and 321 px, from the JAX modules' variable trees (shapes
+    only)."""
+    from pixelssl_tpu.models.discriminator import (
+        FCDiscriminator as JaxFCDiscriminator)
+    from pixelssl_tpu.models.rotation import (
+        RotationClassifier as JaxRotationClassifier)
+    from pixelssl_tpu_torch.models.discriminator import FCDiscriminator
+    from pixelssl_tpu_torch.models.rotation import RotationClassifier
+
+    for jmod, kwargs, module in (
+            (JaxFCDiscriminator(), {}, FCDiscriminator(21)),
+            (JaxRotationClassifier(), {'train': False},
+             RotationClassifier(21))):
+        shapes = jax.eval_shape(lambda: jmod.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 321, 321, 21)), **kwargs))
+        converted = from_jax(jax.tree.map(
+            lambda s: np.zeros(s.shape, np.float32), shapes))
+        ours = module.state_dict()
+        assert set(converted) == set(ours)
+        for key, value in ours.items():
+            assert tuple(converted[key].shape) == tuple(value.shape), key

@@ -129,8 +129,9 @@ def test_ema_update_matches_jax(storage):
 
 
 def _jax_and_port(algo_name, args_dict, rng):
-    """The JAX algorithm and the port's on the same weights (BN statistics
-    perturbed away from their init), and one batch in both layouts."""
+    """The JAX algorithm and the port's on the same weights (BN statistics,
+    where a module has them, perturbed away from their init), and one
+    batch in both layouts."""
     images = rng.standard_normal((BATCH, IM, IM, 3)).astype(np.float32)
     labels = rng.integers(0, NUM_CLASSES, (BATCH, IM, IM)).astype(np.int32)
     lbs = args_dict['batch_size'] - args_dict['unlabeled_batch_size']
@@ -146,8 +147,9 @@ def _jax_and_port(algo_name, args_dict, rng):
     algo = harness.build_algorithm(args, device='cpu',
                                    iters_per_epoch=ITERS_PER_EPOCH)
     for key, module in algo.modules.items():
-        state[key]['batch_stats'] = _perturb_stats(state[key]['batch_stats'],
-                                                   rng)
+        if 'batch_stats' in state[key]:
+            state[key]['batch_stats'] = _perturb_stats(
+                state[key]['batch_stats'], rng)
         module.load_state_dict(from_jax(state[key]))
     jstate = jax.device_put(state, parallel.replicate_sharding(mesh))
     jbatch = parallel.shard_batch({'inp': (images,), 'gt': (labels,)}, mesh)

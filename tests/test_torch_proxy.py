@@ -16,6 +16,7 @@ port's own checkpoint reproduces its val metrics exactly.
 
 import collections
 import json
+import os
 import shutil
 import sys
 
@@ -255,3 +256,35 @@ def test_run_script_help_lists_every_flag(monkeypatch, capsys):
     for flag in ('--exact-val', '--auto-resume', '--cons-scale',
                  '--synthetic-samples', '--u8-transfer', '--num-classes'):
         assert flag in out, flag
+
+
+@pytest.mark.parametrize('script', ['deeplabv2_pascalvoc_1-8_ssladv.py',
+                                    'deeplabv2_pascalvoc_1-8_ssls4l.py'])
+def test_adv_and_s4l_scripts_stop_at_the_voc_input_path(script, tmp_path,
+                                                        monkeypatch):
+    """As written, the 1-8 AdvSSL and S4L scripts parse every key (the
+    AdvSSL recipe's vestigial ``milestones``/``gamma`` included, with no
+    "Unknown argument" warning) and stop at the VOC datasets. Their
+    output goes under ``tmp_path``."""
+    import runpy
+
+    from pixelssl_tpu_torch.utils import cmd
+
+    config = runpy.run_path(os.path.join(
+        os.path.dirname(os.path.abspath(pixelssl_tpu_torch.__file__)),
+        'scripts', script))['config']
+    config['out_path'] = str(tmp_path)
+    warnings = []
+    monkeypatch.setattr(cmd.logger, 'log_warn',
+                        lambda *msgs: warnings.append(msgs))
+    parser = pixelssl_tpu_torch.create_parser(config['ssl_algorithm'])
+    sseg.add_parser_arguments(parser)
+    args = cmd.parse_args(parser, config, cli_override=False)
+    assert warnings == []
+    if 'milestones' in config:
+        assert args.milestones == [10, 20] and args.gamma == 0.1
+    with pytest.raises(logger.FatalError) as err:
+        pixelssl_tpu_torch.run_script(config, sseg,
+                                      sseg.SemanticSegmentationProxy,
+                                      device='cpu', cli_override=False)
+    assert 'ROADMAP A2b' in str(err.value)
