@@ -9,7 +9,8 @@ Phases, each printing a line as it ends:
 2. builds ``pixelssl_tpu_torch/csrc/blur.cu`` with ``nvcc`` for sm_90a;
 3. holds the blur kernel against its plain PyTorch version in float32 at
    the three shapes of phase 5's GCT step at 321 px, the three of phase
-   11's (derived from its script's batch and size), a non-square map, a
+   11's and the three of phase 19's PSPNet GCT script at 513 px (each
+   derived from its script's batch and size), a non-square map, a
    map smaller than half the kernel (repeated reflection), the 513 px
    recipe's widest blur and a map one past the kernel's tiles: max abs error
    <= 1e-5; times the kernel, the plain version and one cuBLAS form of the
@@ -79,9 +80,29 @@ Phases, each printing a line as it ends:
 15. the 1-8 AdvSSL and S4L scripts through ``run_script`` at full width on
     synthetic data, batch 2 + 2, 1 epoch of 3 iterations, validation and
     ``checkpoint_1.pth``; a rescore of the S4L run from it reproduces its
-    val scores (atol 1e-4).
+    val scores (atol 1e-4);
+16. PSPNet at ResNet-10 / 64 px in float32: three SupOnly steps and three
+    CCT steps with a decoder of every family (the 1-8 CCT script's flags)
+    on the card and on the CPU from the same weights, batch and decoder
+    draws; the limits of phase 6;
+17. PSPNet/ResNet-101, output stride 16, 513 px, 21 classes, bf16, at the
+    scripts' batches: SupOnly 4 + 0, CCT 2 + 2 with the 1-8 script's 11
+    decoders, CutMix 2 + 4 with its 1-8 script's flags and
+    ``cons_threshold`` 0.05; three timed steps each, the task model's
+    parameter count, every metric finite, the listed losses > 0, no blur
+    launch; then one more CutMix step, untimed, reading the confidence at
+    0.05 and at the recipe's 0.97; one CCT step under ``torch.profiler``,
+    and the 11 decoders' kernel time at that step's shapes beside the
+    step's;
+18. ``validate`` of CCT on two synthetic batches of 2 at 513 px, and its
+    checkpoint (decoders and SGD momentum included) loaded into a fresh
+    build and refused by the PSPNet SupOnly of phase 17;
+19. the PSPNet 1-8 CCT and GCT scripts through ``run_script`` at 513 px on
+    synthetic data, batch 2 + 2, 1 epoch of 3 iterations, validation and
+    ``checkpoint_1.pth``; CCT rescored from it (atol 1e-4), GCT launching
+    the blur kernel 6 times an iteration.
 
-Phases 5, 7, 8, 10, 11, 13 and 15 print their step times and peak memory
+Phases 5, 7, 8, 10, 11, 13, 15, 17 and 19 print their step times and peak memory
 (the harness phases also the peak over the steps after the first, which
 leaves out cuDNN's autotuning of new shapes), and the run its total wall
 time and each phase's.
@@ -205,7 +226,7 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/15] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/19] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
     return card
@@ -215,26 +236,28 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/15] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/19] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
 def phase_kernel(seed, script_cases):
     """The kernel against its plain version, and both timed, at the calls
-    of phase 5's GCT step (``gct``), of the script-GCT path
-    (``script_gct``, ``script_cases``) and at ``EXTRA_CASES``."""
+    of phase 5's GCT step (``gct``), of the script-GCT paths
+    (``script_cases``: {path: calls}, ``script_gct`` at 321 px and
+    ``pspnet_gct`` at 513) and at ``EXTRA_CASES``."""
     import numpy as np
     import torch
     from pixelssl_tpu_torch.ops import blur
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/15] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/19] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
     cases = ([('gct', c) for c in MAIN_PATH_CASES] +
-             [('script_gct', c) for c in script_cases] +
+             [(path, c) for path, calls in script_cases.items()
+              for c in calls] +
              [('extra', c) for c in EXTRA_CASES])
     for path, (n, h, w, k) in cases:
         x = torch.from_numpy(rng.standard_normal((n, h, w)).astype(
@@ -257,7 +280,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/15] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/19] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -300,7 +323,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/15] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/19] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -359,13 +382,18 @@ def timed_steps(algo, batch, steps, tag, what, positive):
     return history, step_ms, launches
 
 
-def full_width_args(algo_name, seed, **config):
-    """DeepLab-v2/ResNet-101, output stride 16, 321 px, 21 classes, bf16
-    autocast, 20 epochs of the poly schedule."""
+MODEL_NAMES = {'deeplabv2': 'DeepLab-v2', 'pspnet': 'PSPNet'}
+MODEL_IM_SIZE = {'deeplabv2': IM_SIZE, 'pspnet': 513}
+
+
+def full_width_args(algo_name, seed, model='deeplabv2', **config):
+    """DeepLab-v2 (321 px) or PSPNet (513 px) on ResNet-101, output stride
+    16, 21 classes, bf16 autocast, 20 epochs of the poly schedule."""
     from pixelssl_tpu_torch import harness
     return harness.default_args(
-        algo_name, backbone='resnet101', output_stride=16, im_size=321,
-        num_classes=21, epochs=20, bf16=True, seed=seed, **config)
+        algo_name, models={'model': model}, backbone='resnet101',
+        output_stride=16, im_size=MODEL_IM_SIZE[model], num_classes=21,
+        epochs=20, bf16=True, seed=seed, **config)
 
 
 def build_full_width(args, tag, what):
@@ -376,8 +404,9 @@ def build_full_width(args, tag, what):
     algo = harness.build_algorithm(args, iters_per_epoch=ITERS_PER_EPOCH)
     batch = harness.synthetic_batch(args, seed=args.seed)
     torch.cuda.synchronize()
-    say('{0} built {1} on DeepLab-v2/ResNet-101 @321 (batch {2}+{3}) in '
-        '{4:.1f} s'.format(tag, what, args.labeled_batch_size,
+    say('{0} built {1} on {2}/ResNet-101 @{3} (batch {4}+{5}) in '
+        '{6:.1f} s'.format(tag, what, MODEL_NAMES[args.models['model']],
+                           args.im_size, args.labeled_batch_size,
                            args.unlabeled_batch_size,
                            time.perf_counter() - t0))
     return algo, batch
@@ -388,9 +417,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/15]', 'GCT')
+    algo, batch = build_full_width(args, '[5/19]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/15]', 'GCT',
+        algo, batch, steps, '[5/19]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -454,7 +483,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/15] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/19] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -466,7 +495,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/15] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/19] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -519,16 +548,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/15]', 'MT')
+    algo, batch = build_full_width(args, '[7/19]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/15]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/19]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/15]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/19]', 'MT')
     return algo
 
 
@@ -536,8 +565,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/15]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/15]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/19]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/19]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -568,7 +597,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/15] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/19] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -596,15 +625,17 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/15] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/19] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
 
 # the script phases: samples of the synthetic set (every other one
 # labeled) and the iterations an epoch that they give at batch 2 + 2
-SCRIPT_SAMPLES = {'ssl_mt': 20, 'ssl_gct': 12, 'ssl_adv': 12, 'ssl_s4l': 12}
-SCRIPT_EPOCHS = {'ssl_mt': 2, 'ssl_gct': 1, 'ssl_adv': 1, 'ssl_s4l': 1}
+SCRIPT_SAMPLES = {'ssl_mt': 20, 'ssl_gct': 12, 'ssl_adv': 12, 'ssl_s4l': 12,
+                  'ssl_cct': 12}
+SCRIPT_EPOCHS = {'ssl_mt': 2, 'ssl_gct': 1, 'ssl_adv': 1, 'ssl_s4l': 1,
+                 'ssl_cct': 1}
 RESCORE_ATOL = 1e-4
 
 
@@ -754,7 +785,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/15]'
+    tag = '[10/19]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -828,7 +859,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/15]'
+    tag = '[11/19]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -869,9 +900,9 @@ NEW_ALGOS = (
 
 
 def inject_draws(algo, seed, steps):
-    """Fix the per-step draws of S4L (angles) and CutMix (box masks) from
-    numpy and a CPU generator, so that the card and the CPU take the same
-    ones."""
+    """Fix the per-step draws of S4L (angles), CutMix (box masks) and CCT
+    (the decoders' draws) from numpy and a CPU generator, so that the card
+    and the CPU take the same ones."""
     import numpy as np
     import torch
     from pixelssl_tpu_torch.ops import boxmask
@@ -888,48 +919,70 @@ def inject_draws(algo, seed, steps):
                                      algo.args.mask_prop_range).to(
                                          algo.device)
         algo._draw_masks = draw
+    elif algo.NAME == 'ssl_cct':
+        from pixelssl_tpu_torch.ssl_algorithm.ssl_cct import \
+            draw_decoder_noise
+
+        def to_device(d):
+            if isinstance(d, tuple):
+                return tuple(t.to(algo.device) for t in d)
+            return None if d is None else d.to(algo.device)
+
+        def draw_cct(step, latent_shape):
+            generator = torch.Generator().manual_seed(seed + step)
+            return [to_device(d) for d in draw_decoder_noise(
+                algo.specs, generator, latent_shape, 'cpu')]
+        algo._draw_decoder_noise = draw_cct
 
 
-def phase_small_new(seed, steps):
-    """AdvSSL, S4L and CutMix at ResNet-10 / 64 px in float32, ``steps``
-    steps each on the card and on the CPU from the same weights, batch and
-    draws; the losses must agree with phase 6's limits (rtol 2e-3;
-    cons_loss rtol 2e-2, atol 1e-6), rotation_acc exactly."""
+def small_card_vs_cpu(tag, what, args, seed, steps):
+    """``steps`` steps of the algorithm of ``args`` on the card and on the
+    CPU from the same weights, batch and draws; the losses must agree with
+    phase 6's limits (rtol 2e-3; cons_loss rtol 2e-2, atol 1e-6),
+    rotation_acc exactly."""
     from pixelssl_tpu_torch import harness
 
-    small = dict(backbone='resnet10', im_size=64, num_classes=5, epochs=20,
-                 bf16=False, seed=seed, lr=5e-5, batch_size=4,
-                 unlabeled_batch_size=2)
-    for algo_name, what, config, _ in NEW_ALGOS:
-        args = harness.default_args(algo_name, **dict(config, **small))
-        rows = {}
-        for device in ('cpu', 'cuda'):
-            algo = harness.build_algorithm(args, device=device,
-                                           iters_per_epoch=2)
-            inject_draws(algo, seed, steps)
-            batch = harness.synthetic_batch(args, device=device, seed=seed)
-            rows[device] = [{k: float(v) for k, v in
-                             algo.train_step(batch).items()}
-                            for _ in range(steps)]
-        worst = 0.0
-        for s, (ref_row, got_row) in enumerate(zip(rows['cpu'],
-                                                   rows['cuda'])):
-            for key, ref in ref_row.items():
-                rtol, atol = {'cons_loss': (2e-2, 1e-6),
-                              'rotation_acc': (0.0, 0.0)}.get(key,
-                                                              (2e-3, 1e-6))
-                got = got_row[key]
-                worst = max(worst, abs(got - ref) / max(abs(ref), 1e-12))
-                if not math.isclose(got, ref, rel_tol=rtol, abs_tol=atol):
-                    raise AssertionError(
-                        'small {0} step {1}: {2} on the card {3} vs CPU '
-                        '{4}'.format(algo_name, s, key, got, ref))
-        say('[12/15] small {0} ({1} steps, ResNet-10, 64 px) card vs CPU '
-            'agree, largest relative metric difference {2:.3g}; last step: '
-            '{3}'.format(what, steps, worst, '  '.join(
+    rows = {}
+    for device in ('cpu', 'cuda'):
+        algo = harness.build_algorithm(args, device=device, iters_per_epoch=2)
+        inject_draws(algo, seed, steps)
+        batch = harness.synthetic_batch(args, device=device, seed=seed)
+        rows[device] = [{k: float(v) for k, v in
+                         algo.train_step(batch).items()}
+                        for _ in range(steps)]
+    worst = 0.0
+    for s, (ref_row, got_row) in enumerate(zip(rows['cpu'], rows['cuda'])):
+        for key, ref in ref_row.items():
+            rtol, atol = {'cons_loss': (2e-2, 1e-6),
+                          'rotation_acc': (0.0, 0.0)}.get(key, (2e-3, 1e-6))
+            got = got_row[key]
+            worst = max(worst, abs(got - ref) / max(abs(ref), 1e-12))
+            if not math.isclose(got, ref, rel_tol=rtol, abs_tol=atol):
+                raise AssertionError(
+                    'small {0} step {1}: {2} on the card {3} vs CPU '
+                    '{4}'.format(what, s, key, got, ref))
+    say('{0} small {1} ({2} steps, ResNet-10, {3} px) card vs CPU agree, '
+        'largest relative metric difference {4:.3g}; last step: {5}'.format(
+            tag, what, steps, args.im_size, worst, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
                 for k in sorted(rows['cpu'][-1]))))
+
+
+SMALL = dict(backbone='resnet10', im_size=64, num_classes=5, epochs=20,
+             bf16=False, lr=5e-5)
+
+
+def phase_small_new(seed, steps):
+    """AdvSSL, S4L and CutMix at ResNet-10 / 64 px in float32, card
+    against CPU."""
+    from pixelssl_tpu_torch import harness
+
+    for algo_name, what, config, _ in NEW_ALGOS:
+        args = harness.default_args(algo_name, **dict(
+            config, seed=seed, batch_size=4, unlabeled_batch_size=2,
+            **SMALL))
+        small_card_vs_cpu('[12/19]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -995,7 +1048,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/15] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/19] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1014,9 +1067,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/15]', what)
+        algo, batch = build_full_width(args, '[13/19]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/15]', what, positive)
+            algo, batch, steps, '[13/19]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1030,7 +1083,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/15] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/19] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1039,7 +1092,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/15]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/19]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1047,88 +1100,93 @@ def phase_new_full_width(seed, steps):
     return algos
 
 
-def phase_new_validate_checkpoint(algos, seed):
-    """``validate`` of each of the three on two synthetic batches of 4 at
-    321 px (scores in [0, 1], losses finite); a checkpoint of each saved,
-    loaded into a fresh build of the same algorithm (every module and
-    optimizer state equal: D and its Adam state, the rotation head, the
-    teacher) and refused by another algorithm."""
-    import tempfile
-
+def validate_and_round_trip(tag, algo, fresh_args, refuser, seed, tmp):
+    """``validate`` of ``algo`` on two synthetic batches of its labeled
+    batch size (scores in [0, 1], losses finite); its checkpoint saved,
+    loaded into a fresh build from ``fresh_args`` (every module and
+    optimizer state equal) and refused by the algorithm ``refuser``."""
     import torch
     from pixelssl_tpu_torch import harness
     from pixelssl_tpu_torch.utils import logger
+
+    algo_name = algo.NAME
+    scores = algo.validate(harness.synthetic_val_batches(
+        algo.args, 2, seed=seed + 1), epoch=0)
+    losses = {k: m.avg for k, m in algo.meters.items()
+              if k.endswith('_loss')}
+    bad = {k: v for k, v in scores.items() if not 0.0 <= v <= 1.0}
+    if not scores or bad or not losses or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError('{0} validation: {1} {2}'.format(
+            algo_name, scores, losses))
+    say('{0} {1} validate (2 batches of {2} @{3}): {4}'.format(
+        tag, algo_name, algo.args.labeled_batch_size, algo.args.im_size,
+        '  '.join('{0} {1:.5f}'.format(k, float(v)) for k, v in sorted(
+            dict(scores, **losses).items())
+            if 'mIoU' in k or k.endswith('_loss'))))
+
+    path = algo.save_checkpoint(
+        epoch=0, path=os.path.join(tmp, algo_name + '.pth'))
+    fresh = harness.build_algorithm(fresh_args,
+                                    iters_per_epoch=ITERS_PER_EPOCH)
+    fresh.load_checkpoint(path)
+    compared = 0
+    for key, module in algo.modules.items():
+        theirs = fresh.modules[key].state_dict()
+        for name, value in module.state_dict().items():
+            if not torch.equal(value, theirs[name]):
+                raise AssertionError('loaded {0}.{1} differs'.format(
+                    key, name))
+            compared += 1
+    for key, opt in algo.optimizers.items():
+        ours, theirs = opt.state_dict(), fresh.optimizers[key].state_dict()
+        for pid, st in ours['state'].items():
+            for name, value in st.items():
+                other = theirs['state'][pid][name]
+                if torch.as_tensor(value).device != torch.as_tensor(
+                        other).device or not torch.equal(
+                            torch.as_tensor(value).cpu(),
+                            torch.as_tensor(other).cpu()):
+                    raise AssertionError(
+                        'loaded {0} state {1}.{2} differs'.format(
+                            key, pid, name))
+                compared += 1
+    if fresh.state.step != algo.state.step:
+        raise AssertionError('loaded step {0} != {1}'.format(
+            fresh.state.step, algo.state.step))
+    del fresh
+    try:
+        refuser.load_checkpoint(path)
+    except logger.FatalError:
+        pass
+    else:
+        raise AssertionError('{0} loaded a checkpoint of {1}'.format(
+            refuser.NAME, algo_name))
+    say('{0} {1} checkpoint of {2:.0f} MiB ({3} modules: {4}; '
+        'optimizers: {5}) loaded into a fresh build, {6} tensors '
+        'equal, step {7}; refused by {8}'.format(
+            tag, algo_name, os.path.getsize(path) / 2 ** 20,
+            len(algo.modules), ', '.join(algo.modules),
+            ', '.join(algo.optimizers), compared, algo.state.step,
+            refuser.NAME))
+    torch.cuda.empty_cache()
+
+
+def phase_new_validate_checkpoint(algos, seed):
+    """``validate`` and a checkpoint round trip of each of the three, each
+    checkpoint refused by another of them."""
+    import tempfile
 
     configs = {name: config for name, _, config, _ in NEW_ALGOS}
     refusers = {'ssl_adv': 'ssl_s4l', 'ssl_s4l': 'ssl_cutmix',
                 'ssl_cutmix': 'ssl_adv'}
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
-            scores = algo.validate(harness.synthetic_val_batches(
-                algo.args, 2, seed=seed + 1), epoch=0)
-            losses = {k: m.avg for k, m in algo.meters.items()
-                      if k.endswith('_loss')}
-            bad = {k: v for k, v in scores.items() if not 0.0 <= v <= 1.0}
-            if not scores or bad or not losses or not all(
-                    math.isfinite(v) for v in losses.values()):
-                raise AssertionError('{0} validation: {1} {2}'.format(
-                    algo_name, scores, losses))
-            say('[14/15] {0} validate (2 batches of 4 @321): {1}'.format(
-                algo_name, '  '.join(
-                    '{0} {1:.5f}'.format(k, float(v)) for k, v in sorted(
-                        dict(scores, **losses).items())
-                    if 'mIoU' in k or k.endswith('_loss'))))
-
-            path = algo.save_checkpoint(
-                epoch=0, path=os.path.join(tmp, algo_name + '.pth'))
-            fresh = harness.build_algorithm(
-                full_width_args(algo_name, seed + 1, batch_size=8,
-                                unlabeled_batch_size=4,
-                                **configs[algo_name]),
-                iters_per_epoch=ITERS_PER_EPOCH)
-            fresh.load_checkpoint(path)
-            compared = 0
-            for key, module in algo.modules.items():
-                theirs = fresh.modules[key].state_dict()
-                for name, value in module.state_dict().items():
-                    if not torch.equal(value, theirs[name]):
-                        raise AssertionError('loaded {0}.{1} differs'.format(
-                            key, name))
-                    compared += 1
-            for key, opt in algo.optimizers.items():
-                ours, theirs = opt.state_dict(), \
-                    fresh.optimizers[key].state_dict()
-                for pid, st in ours['state'].items():
-                    for name, value in st.items():
-                        other = theirs['state'][pid][name]
-                        if torch.as_tensor(value).device != torch.as_tensor(
-                                other).device or not torch.equal(
-                                    torch.as_tensor(value).cpu(),
-                                    torch.as_tensor(other).cpu()):
-                            raise AssertionError(
-                                'loaded {0} state {1}.{2} differs'.format(
-                                    key, pid, name))
-                        compared += 1
-            if fresh.state.step != algo.state.step:
-                raise AssertionError('loaded step {0} != {1}'.format(
-                    fresh.state.step, algo.state.step))
-            del fresh
-            other = refusers[algo_name]
-            try:
-                algos[other].load_checkpoint(path)
-            except logger.FatalError:
-                pass
-            else:
-                raise AssertionError('{0} loaded a checkpoint of {1}'.format(
-                    other, algo_name))
-            say('[14/15] {0} checkpoint of {1:.0f} MiB ({2} modules: {3}; '
-                'optimizers: {4}) loaded into a fresh build, {5} tensors '
-                'equal, step {6}; refused by {7}'.format(
-                    algo_name, os.path.getsize(path) / 2 ** 20,
-                    len(algo.modules), ', '.join(algo.modules),
-                    ', '.join(algo.optimizers), compared, algo.state.step,
-                    other))
-            torch.cuda.empty_cache()
+            validate_and_round_trip(
+                '[14/19]', algo, full_width_args(
+                    algo_name, seed + 1, batch_size=8,
+                    unlabeled_batch_size=4, **configs[algo_name]),
+                algos[refusers[algo_name]], seed, tmp)
 
 
 def phase_script_new():
@@ -1137,7 +1195,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/15]'
+    tag = '[15/19]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1154,6 +1212,176 @@ def phase_script_new():
                 rescore_matches(tag, config, proxy, records)
             del proxy
         no_workers_left(tag)
+
+
+# the PSPNet phases (16-19): the PSPNet scripts' model and crop
+# (scripts/_common.py), each algorithm at its 1-8 script's batch and flags;
+# CutMix's cons_threshold 0.05 for the reason given above phase 12
+CCT_CONFIG = dict(
+    NULL_CONFIG, cons_scale=30.0, cons_rampup_epochs=5, ad_lr_scale=10.0,
+    vat_dec_num=1, drop_dec_num=2, cut_dec_num=2, context_dec_num=1,
+    object_dec_num=1, fn_dec_num=2, fd_dec_num=2)
+PSP_ALGOS = (
+    ('ssl_null', 'SupOnly', NULL_CONFIG, (4, 0), ('task_loss',)),
+    ('ssl_cct', 'CCT', CCT_CONFIG, (4, 2), ('task_loss', 'cons_loss')),
+    ('ssl_cutmix', 'CutMix', CUTMIX_CONFIG, (6, 4),
+     ('task_loss', 'cons_loss')),
+)
+SCRIPT_PSP_CCT = 'pspnet_pascalvoc_1-8_sslcct.py'
+SCRIPT_PSP_GCT = 'pspnet_pascalvoc_1-8_sslgct.py'
+
+
+def phase_small_psp(seed, steps):
+    """PSPNet at ResNet-10 / 64 px in float32: SupOnly, and CCT with every
+    decoder family, card against CPU."""
+    from pixelssl_tpu_torch import harness
+
+    for algo_name, what, config, (bs, ubs), _ in PSP_ALGOS[:2]:
+        args = harness.default_args(algo_name, **dict(
+            config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
+            unlabeled_batch_size=ubs, **SMALL))
+        small_card_vs_cpu('[16/19]', 'PSPNet ' + what, args, seed, steps)
+
+
+def decoder_share(algo, batch, step_kernel_ms):
+    """The 11 decoders' work of one CCT step, profiled on its own at the
+    step's shapes on copies of the decoders: each perturbation and decoder
+    forward on the unlabeled rows' latent, the resize to the target, the
+    softmax and the MSE, and the backward to the decoders' parameters and
+    the latent. Prints its kernel time beside the step's."""
+    import copy
+
+    import torch
+    from pixelssl_tpu_torch.models.layers import resize_bilinear
+    from pixelssl_tpu_torch.ssl_algorithm.ssl_cct import apply_decoder
+
+    lbs, ubs = algo.ctx.lbs, algo.ctx.ubs
+    u_inp = tuple(t[lbs:lbs + ubs] for t in batch['inp'])
+    algo.model.eval()  # the BN statistics stay as the steps left them
+    with torch.no_grad():
+        resulter = algo.model(u_inp)
+    algo.model.train()
+    latent = resulter['sslcct_ad_inp'].detach().requires_grad_()
+    main_pred = resulter['pred'][0]
+    ad_gt = resulter['activated_pred'][0].float()
+    ads = copy.deepcopy(algo.model.ads)
+    draws = algo._draw_decoder_noise(algo.state.step, tuple(latent.shape))
+    task_func = algo.ctx.task_func
+
+    def work():
+        preds = [resize_bilinear(apply_decoder(
+            spec, ads['ad_{0}'.format(i)], latent, main_pred, draw).float(),
+            ad_gt.shape[2:], align_corners=False)
+            for i, (spec, draw) in enumerate(zip(algo.specs, draws))]
+        loss = sum(torch.square(a - ad_gt).mean()
+                   for a in task_func.sslcct_activate_ad_preds(preds))
+        loss.backward(inputs=list(ads.parameters()) + [latent])
+
+    work()
+    events = profile_kernels(work)
+    dec_ms = sum(e.self_device_time_total for e in events) / 1e3
+    say('[17/19] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+        'forward and backward): {3:.3f} ms of device time in {4} '
+        'launches{5}'.format(
+            len(algo.specs), ubs, list(latent.shape), dec_ms,
+            sum(e.count for e in events),
+            '' if not step_kernel_ms else
+            ', {0:.1f}% of the CCT step\'s {1:.3f} ms'.format(
+                100.0 * dec_ms / step_kernel_ms, step_kernel_ms)))
+
+
+def phase_psp_full_width(seed, steps):
+    """SupOnly, CCT and CutMix on PSPNet/ResNet-101 @513 at their scripts'
+    batches: ``steps`` timed steps each; CutMix's confidence on one more
+    step; one CCT step profiled with the decoders' share. Returns the
+    algorithms."""
+    import torch
+    from pixelssl_tpu_torch.nn.func import count_params
+
+    algos = {}
+    for algo_name, what, config, (bs, ubs), positive in PSP_ALGOS:
+        args = full_width_args(algo_name, seed, model='pspnet',
+                               batch_size=bs, unlabeled_batch_size=ubs,
+                               **config)
+        algo, batch = build_full_width(args, '[17/19]', what)
+        task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
+        say('[17/19] {0}: task model {1:,} parameters{2}'.format(
+            what, count_params(task_model),
+            '' if algo_name != 'ssl_cct' else
+            ', {0} decoders {1:,}'.format(len(algo.model.ads),
+                                          count_params(algo.model.ads))))
+        _, step_ms, launches = timed_steps(
+            algo, batch, steps, '[17/19]', what, positive)
+        if launches != 0:
+            raise AssertionError('{0} launched the blur kernel {1} '
+                                 'times'.format(what, launches))
+        if algo_name == 'ssl_cutmix':
+            seen = cutmix_confidences(
+                algo, (args.cons_threshold, CUTMIX_THRESHOLD))
+            cons_loss = float(algo.train_step(batch)['cons_loss'])
+            del algo._draw_masks, algo._teacher_forward
+            say('[17/19] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+                'confidence of the mixed teacher pixels at threshold {2:g} '
+                '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
+                    steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
+                    seen[0][args.cons_threshold], seen[0][CUTMIX_THRESHOLD]))
+            if not cons_loss > 0:
+                raise AssertionError('CutMix cons_loss {0} on the untimed '
+                                     'step'.format(cons_loss))
+        if algo_name == 'ssl_cct':
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/19]', what)
+            decoder_share(algo, batch, kernel_ms)
+        algos[algo_name] = algo
+        torch.cuda.empty_cache()
+    return algos
+
+
+def phase_psp_validate_checkpoint(algos, seed):
+    """``validate`` of CCT and its checkpoint round trip, refused by the
+    PSPNet SupOnly."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        validate_and_round_trip(
+            '[18/19]', algos['ssl_cct'], full_width_args(
+                'ssl_cct', seed + 1, model='pspnet', batch_size=4,
+                unlabeled_batch_size=2, **CCT_CONFIG),
+            algos['ssl_null'], seed, tmp)
+
+
+def phase_script_psp():
+    """The PSPNet 1-8 CCT and GCT scripts through ``run_script`` at 513 px
+    on synthetic data; CCT rescored from ``checkpoint_1.pth``, GCT's blur
+    launches counted. Returns GCT's."""
+    import tempfile
+
+    tag = '[19/19]'
+    gct_launches = None
+    for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
+                              (SCRIPT_PSP_GCT, 'ssl_gct')):
+        with tempfile.TemporaryDirectory() as out:
+            config, proxy, records, launches = run_script_phase(
+                tag, script, algo_name, out)
+            iters = len(proxy.train_loader)
+            if algo_name == 'ssl_cct':
+                if launches != 0:
+                    raise AssertionError('CCT launched the blur kernel {0} '
+                                         'times'.format(launches))
+                if not all(r['cons_loss'] > 0 for r in records
+                           if r['phase'] == 'train'):
+                    raise AssertionError('CCT cons_loss <= 0: {0}'.format(
+                        records))
+                rescore_matches(tag, config, proxy, records)
+            elif launches != BLUR_LAUNCHES_PER_STEP * iters:
+                raise AssertionError('blur kernel launched {0} times in {1} '
+                                     'iterations, expected {2}'.format(
+                                         launches, iters,
+                                         BLUR_LAUNCHES_PER_STEP * iters))
+            else:
+                gct_launches = launches
+            del proxy
+        no_workers_left(tag)
+    return gct_launches
 
 
 def main(argv=None):
@@ -1196,8 +1424,9 @@ def main(argv=None):
     try:
         card = run('1', phase_device)
         run('2', phase_build)
-        rows, floor_ms = run('3', phase_kernel, opts.seed,
-                             script_blur_cases(SCRIPT_GCT))
+        rows, floor_ms = run('3', phase_kernel, opts.seed, {
+            'script_gct': script_blur_cases(SCRIPT_GCT),
+            'pspnet_gct': script_blur_cases(SCRIPT_PSP_GCT)})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -1212,6 +1441,11 @@ def main(argv=None):
         run('14', phase_new_validate_checkpoint, new_algos, opts.seed)
         del new_algos
         run('15', phase_script_new)
+        run('16', phase_small_psp, opts.seed, STEPS)
+        psp_algos = run('17', phase_psp_full_width, opts.seed, STEPS)
+        run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
+        del psp_algos
+        psp_launches = run('19', phase_script_psp)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1219,7 +1453,8 @@ def main(argv=None):
 
     # the kernel's line covers one GCT step of phase 5: two calls at each of
     # its shapes; its bound is that of the six calls' bytes and operations;
-    # ``script_gct`` the same for a step of phase 11
+    # ``script_gct`` and ``pspnet_gct`` the same for a step of phase 11 and
+    # of phase 19
     def per_step(path):
         step_rows = [r for r in rows if r['path'] == path]
         out = {key: 2 * sum(r[key] for r in step_rows)
@@ -1235,6 +1470,8 @@ def main(argv=None):
 
     gct_step, script_step = per_step('gct'), per_step('script_gct')
     script_step['launches'] = script_launches
+    pspnet_step = per_step('pspnet_gct')
+    pspnet_step['launches'] = psp_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -1253,11 +1490,14 @@ def main(argv=None):
         'per': 'one GCT step of phase 5 at 321 px, batch 4+4: 2x each of '
                'the calls of path gct; launches: its 3 steps. script_gct: '
                'the same for a step of the run_script of phase 11, batch '
-               '2+2, from the calls of path script_gct',
+               '2+2, from the calls of path script_gct; pspnet_gct: the '
+               'same for the PSPNet GCT script of phase 19 at 513 px, batch '
+               '2+2, from the calls of path pspnet_gct',
         'script_gct': script_step,
+        'pspnet_gct': pspnet_step,
         'calls': rows,
     }
-    say('chip_smoke: all 15 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 19 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

@@ -41,12 +41,15 @@ def default_args(ssl_algorithm='ssl_null', task='sseg', **overrides):
     args.task = task
     for k, v in overrides.items():
         setattr(args, k.replace('-', '_'), v)
+    # the task's defaults for what the overrides leave unset, so that
+    # ``models={'model': 'pspnet'}`` alone picks PSPNet
+    defaults = _TASK_DEFAULTS[task]
     if not args.models:
-        defaults = _TASK_DEFAULTS[task]
         args.models = {'model': defaults['model']}
-        args.optimizers = {'model': 'sgd'}
-        args.lrers = {'model': 'polynomiallr'}
-        args.criterions = {'model': defaults['criterion']}
+    for key, value in (('optimizers', 'sgd'), ('lrers', 'polynomiallr'),
+                       ('criterions', defaults['criterion'])):
+        if not getattr(args, key):
+            setattr(args, key, {name: value for name in args.models})
     args.labeled_batch_size = args.batch_size - args.unlabeled_batch_size
     return args
 

@@ -5,3 +5,5 @@ from .flaw_detector import FlawDetector, IBNorm, flaw_detector_criterion
 from .convert import from_jax
 from .discriminator import FCDiscriminator, fc_discriminator_criterion
 from .rotation import RotationClassifier
+from .pspnet import PSPNet, PSPModule, PixelShuffleBlock, UpsampleDecoder
+from . import cct_decoders

@@ -4,9 +4,22 @@ NCHW.
 * ``SyncBatchNorm``: the JAX package's cross-replica BatchNorm on one card
   is PyTorch's BatchNorm with torch momentum 0.1, the biased batch variance
   to normalise and the unbiased one in the running variance, eps 1e-5, the
-  statistics in float32 (reference batchnorm.py:113-125).
+  statistics in float32 (reference batchnorm.py:113-125). On one value per
+  channel (PSPNet's 1x1 pyramid bin on one row) it normalises with variance
+  0 and moves the running variance by ``var * n / max(n - 1, 1)`` = 0, as
+  the JAX layer does, where PyTorch's raises.
 * ``resize_bilinear``: both ``align_corners`` conventions. ``F.interpolate``
   is the same two-tap arithmetic as the JAX interpolation matrices.
+* ``resize_nearest``: source index ``i * in // out`` in integers, a gather;
+  ``F.interpolate(mode='nearest')`` takes ``floor(i * (in / out))`` in
+  floating point, which can round to another pixel.
+* ``adaptive_avg_pool``: ``F.adaptive_avg_pool2d`` in float32; its floor /
+  ceil bins are those of the JAX averaging matrices, bins larger than the
+  input included.
+* ``pixel_shuffle`` / ``icnr_init``: ``F.pixel_shuffle`` (channel
+  ``c*r*r + i*r + j``, the JAX docstring's order); ICNR repeats each of the
+  ``C`` sub-kernels ``r*r`` times along O, as the JAX initializer repeats
+  along the last axis of HWIO.
 * ``leaky_relu_02``: plain LeakyReLU(0.2); the JAX custom vjp was a
   workaround for the TPU compiler.
 * ``lecun_normal_``: the flax ``Conv``/``Dense`` defaults the auxiliary
@@ -27,6 +40,24 @@ class SyncBatchNorm(nn.BatchNorm2d):
         super(SyncBatchNorm, self).__init__(num_features, eps=eps,
                                             momentum=momentum)
 
+    def forward(self, x):
+        if not self.training or x.numel() != x.shape[1]:
+            return super(SyncBatchNorm, self).forward(x)
+        # one value per channel: biased variance 0, unbiased 0 * 1 / 1
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        # in place on ``.data``, as PyTorch's kernel updates them: an
+        # earlier forward's backward may still hold these buffers
+        for stat, batch in ((self.running_mean, mean),
+                            (self.running_var, var)):
+            stat.data.mul_(1.0 - self.momentum).add_(batch.detach(),
+                                                     alpha=self.momentum)
+        self.num_batches_tracked.data.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[None, :, None, None]) * inv[None, :, None, None] +
+                self.bias[None, :, None, None]).to(x.dtype)
+
 
 def resize_bilinear(x, size, align_corners=False):
     """Bilinear resize of [N,C,H,W] to spatial ``size`` (h, w)."""
@@ -35,6 +66,49 @@ def resize_bilinear(x, size, align_corners=False):
         return x
     return F.interpolate(x, size=size, mode='bilinear',
                          align_corners=align_corners)
+
+
+def resize_nearest(x, size):
+    """Nearest resize of [N,C,H,W] to ``size`` (h, w): source index
+    ``i * in // out`` along each axis (JAX layers.py:160-166)."""
+    (h_in, w_in), (h_out, w_out) = x.shape[2:], (int(s) for s in size)
+    hi = torch.arange(h_out, device=x.device) * h_in // h_out
+    wi = torch.arange(w_out, device=x.device) * w_in // w_out
+    return x.index_select(2, hi).index_select(3, wi)
+
+
+def adaptive_avg_pool(x, output_size):
+    """``nn.AdaptiveAvgPool2d`` of [N,C,H,W] in float32, back to the input's
+    dtype (JAX layers.py:169-192)."""
+    return F.adaptive_avg_pool2d(x.float(), output_size).to(x.dtype)
+
+
+def pixel_shuffle(x, scale):
+    """[N,C*r*r,H,W] -> [N,C,H*r,W*r], ``out[n, c, h*r+i, w*r+j] =
+    in[n, c*r*r + i*r + j, h, w]`` (JAX layers.py:203-214)."""
+    return F.pixel_shuffle(x, scale)
+
+
+def kaiming_normal_(weight, generator=None):
+    """flax's ``kaiming_normal``: a normal truncated at two deviations,
+    variance 2 / fan_in after the truncation."""
+    std = math.sqrt(2.0 / weight[0].numel()) / .87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def icnr_init_(weight, scale=2, generator=None):
+    """ICNR for a conv before ``pixel_shuffle(scale)``: the OIHW kernel's
+    ``O = C*scale*scale`` outputs are ``C`` kaiming-normal sub-kernels, each
+    repeated ``scale*scale`` times, so the shuffle starts as a nearest
+    upsampling (JAX layers.py:217-227)."""
+    o = weight.shape[0]
+    sub = kaiming_normal_(torch.empty((o // (scale * scale),) +
+                                      tuple(weight.shape[1:])), generator)
+    with torch.no_grad():
+        weight.copy_(sub.repeat_interleave(scale * scale, dim=0))
+    return weight
 
 
 def leaky_relu_02(x):

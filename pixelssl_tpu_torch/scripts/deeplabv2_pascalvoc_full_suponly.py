@@ -1,0 +1,21 @@
+"""DeepLab-v2 / PASCAL VOC full / ssl_null (reference config: task/sseg/script/deeplabv2_pascalvoc_full_suponly.py).
+
+The port's copy of ``scripts/deeplabv2_pascalvoc_full_suponly.py``; run it as
+``python pixelssl_tpu_torch/scripts/deeplabv2_pascalvoc_full_suponly.py``.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                '..', '..'))
+
+from pixelssl_tpu_torch.scripts._common import base_config, run  # noqa: E402
+
+config = base_config(
+    __file__, model='deeplabv2', ssl_algorithm='ssl_null', epochs=40,
+    sublabeled_ratio=None,
+)
+
+if __name__ == '__main__':
+    run(config)

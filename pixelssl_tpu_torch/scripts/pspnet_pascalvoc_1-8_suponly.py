@@ -1,0 +1,21 @@
+"""PSPNet / PASCAL VOC 1-8 / ssl_null (reference config: task/sseg/script/pspnet_pascalvoc_1-8_suponly.py).
+
+The port's copy of ``scripts/pspnet_pascalvoc_1-8_suponly.py``; run it as
+``python pixelssl_tpu_torch/scripts/pspnet_pascalvoc_1-8_suponly.py``.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                '..', '..'))
+
+from pixelssl_tpu_torch.scripts._common import base_config, run  # noqa: E402
+
+config = base_config(
+    __file__, model='pspnet', ssl_algorithm='ssl_null', epochs=80,
+    sublabeled_ratio='1-8',
+)
+
+if __name__ == '__main__':
+    run(config)

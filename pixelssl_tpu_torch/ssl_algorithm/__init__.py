@@ -1,18 +1,19 @@
 """SSL algorithm registry (counterpart of
-``pixelssl_tpu/ssl_algorithm/__init__.py``); the ported algorithms so far:
-SupOnly, Mean Teacher, AdvSSL, S4L, GCT and CutMix. CCT is not ported
-yet."""
+``pixelssl_tpu/ssl_algorithm/__init__.py``): all seven algorithms of the
+JAX package, SupOnly, Mean Teacher, AdvSSL, S4L, GCT, CCT and CutMix."""
 
 from . import ssl_base  # noqa: F401
-from . import ssl_adv, ssl_cutmix, ssl_gct, ssl_mt, ssl_null, ssl_s4l
+from . import (ssl_adv, ssl_cct, ssl_cutmix, ssl_gct, ssl_mt, ssl_null,
+               ssl_s4l)
 
 # the algorithm-name constants of the JAX registry (its
-# ssl_algorithm/__init__.py:19-27), for the ported algorithms
+# ssl_algorithm/__init__.py:19-27)
 SSL_NULL = ssl_null.SSLNULL.NAME
 SSL_MT = ssl_mt.SSLMT.NAME
 SSL_ADV = ssl_adv.SSLADV.NAME
 SSL_S4L = ssl_s4l.SSLS4L.NAME
 SSL_GCT = ssl_gct.SSLGCT.NAME
+SSL_CCT = ssl_cct.SSLCCT.NAME
 SSL_CUTMIX = ssl_cutmix.SSLCUTMIX.NAME
 
 _MODULES = {
@@ -21,6 +22,7 @@ _MODULES = {
     ssl_adv.SSLADV.NAME: ssl_adv,
     ssl_s4l.SSLS4L.NAME: ssl_s4l,
     ssl_gct.SSLGCT.NAME: ssl_gct,
+    ssl_cct.SSLCCT.NAME: ssl_cct,
     ssl_cutmix.SSLCUTMIX.NAME: ssl_cutmix,
 }
 

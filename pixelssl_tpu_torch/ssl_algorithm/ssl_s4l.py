@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..models.rotation import RotationClassifier
 from ..nn.func import split_tensor_tuple
 from ..nn.optimizer import set_lr
-from ..task_template.model import group_by_lr_mult
+from ..task_template.model import group_by_lr_rule
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext
@@ -75,7 +75,7 @@ class WrappedS4LModule(nn.Module):
     def param_groups(self):
         """The task model's lr rules over the whole wrapped model: the head
         (``rc.*``) matches none of them and trains at 1x."""
-        return group_by_lr_mult(self.named_parameters(), self.task.lr_mult)
+        return group_by_lr_rule(self.named_parameters(), self.task.lr_rule)
 
 
 def rotate_batch(x, angles, dims):

@@ -57,3 +57,18 @@ class TaskFunc(object):
     def ssls4l_rc_in_channels(self):
         """Input channels of the rotation classifier."""
         logger.log_err('Task does not implement ssls4l_rc_in_channels')
+
+    # hooks for ssl_cct (reference func.py:216-253)
+
+    def sslcct_activate_ad_preds(self, ad_preds):
+        """Activate the auxiliary decoders' predictions."""
+        logger.log_err('Task does not implement sslcct_activate_ad_preds')
+
+    def sslcct_ad_in_channels(self):
+        logger.log_err('Task does not implement sslcct_ad_in_channels')
+
+    def sslcct_ad_out_channels(self):
+        logger.log_err('Task does not implement sslcct_ad_out_channels')
+
+    def sslcct_ad_upsample_scale(self):
+        logger.log_err('Task does not implement sslcct_ad_upsample_scale')

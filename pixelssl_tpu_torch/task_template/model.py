@@ -27,21 +27,27 @@ class TaskModel(nn.Module):
     def init_weights(self, generator=None):
         self.net.init_weights(generator)
 
-    def lr_mult(self, name):
+    def lr_rule(self, name):
+        """(the first rule's substring that ``name`` holds, its
+        multiplier), or (None, 1.0)."""
         for substr, mult in self.lr_mult_spec:
             if substr in name:
-                return float(mult)
-        return 1.0
+                return substr, float(mult)
+        return None, 1.0
+
+    def lr_mult(self, name):
+        return self.lr_rule(name)[1]
 
     def param_groups(self):
-        return group_by_lr_mult(self.named_parameters(), self.lr_mult)
+        return group_by_lr_rule(self.named_parameters(), self.lr_rule)
 
 
-def group_by_lr_mult(named_parameters, lr_mult):
-    """One optimizer group per distinct ``lr_mult(name)``, in first-seen
-    order."""
+def group_by_lr_rule(named_parameters, lr_rule):
+    """One optimizer group per rule that ``lr_rule(name)`` matches (the
+    reference's groups: PSPNet's backbone, PSP module and decoder are
+    three), in first-seen order, each carrying its ``lr_mult``."""
     groups = {}
     for name, p in named_parameters:
-        groups.setdefault(lr_mult(name), []).append(p)
-    return [{'params': ps, 'lr_mult': m} for m, ps in groups.items()]
-
+        groups.setdefault(lr_rule(name), []).append(p)
+    return [{'params': ps, 'lr_mult': mult}
+            for (_, mult), ps in groups.items()]

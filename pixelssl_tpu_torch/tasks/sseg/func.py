@@ -1,7 +1,7 @@
 """Semantic-segmentation task hooks (counterpart of
 ``pixelssl_tpu/tasks/sseg/func.py``): the validation metrics (reference
-task/sseg/func.py:36-80) and the AdvSSL, GCT and S4L hooks (JAX
-func.py:126-152,180-181). The maps are NCHW: a one-hot GT is [N,C,H,W] and
+task/sseg/func.py:36-80) and the AdvSSL, GCT, S4L and CCT hooks (JAX
+func.py:126-152,180-207). The maps are NCHW: a one-hot GT is [N,C,H,W] and
 a discriminator's confidence map [N,1,H,W], where the JAX hooks take and
 give NHWC.
 
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ...ops.confusion import confusion_matrix, scores_from_confusion
 from ...task_template import func_template
+from ...utils import logger
 
 
 def task_func():
@@ -86,3 +87,27 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
 
     def ssls4l_rc_in_channels(self):
         return self.args.num_classes
+
+    def sslcct_activate_ad_preds(self, ad_preds):
+        return [torch.softmax(p, dim=1) for p in ad_preds]
+
+    def sslcct_ad_in_channels(self):
+        """The latent's channels: PSPNet's PSP output, DeepLab-v2's
+        backbone feature."""
+        arch = self.args.models['model']
+        if arch == 'pspnet':
+            return 512
+        if arch == 'deeplabv2':
+            return 2048
+        logger.log_err('sslcct_ad_in_channels does not support model '
+                       '`{0}`'.format(arch))
+
+    def sslcct_ad_out_channels(self):
+        return self.args.num_classes
+
+    def sslcct_ad_upsample_scale(self):
+        arch = self.args.models['model']
+        if arch in ('pspnet', 'deeplabv2'):
+            return 8
+        logger.log_err('sslcct_ad_upsample_scale does not support model '
+                       '`{0}`'.format(arch))

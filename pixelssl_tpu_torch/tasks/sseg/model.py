@@ -1,15 +1,19 @@
 """Semantic-segmentation task models (counterpart of
 ``pixelssl_tpu/tasks/sseg/model.py``; reference task/sseg/model.py:21-125).
 
-``DeepLabV2Model`` wraps ``models.DeepLabV2`` in the resulter contract:
-``pred`` (logits, float32) and ``activated_pred`` (softmax over classes),
-NCHW, plus the S4L/CCT keys (reference model.py:60-73). The classifier
-trains at 10x the backbone's lr (model.py:45-48).
+``DeepLabV2Model`` and ``PSPNetModel`` wrap ``models.DeepLabV2`` and
+``models.PSPNet`` in the resulter contract: ``pred`` (logits, float32) and
+``activated_pred`` (softmax over classes), NCHW, plus the S4L key (the
+logits) and the CCT key (the latent: DeepLab-v2's backbone feature,
+PSPNet's PSP output) (reference model.py:60-73). Heads train at 10x the
+backbone's lr: DeepLab-v2's classifier (model.py:45-48), PSPNet's PSP
+module and decoder (model.py:103-107), three lr groups.
 """
 
 import torch
 
 from ...models.deeplab_v2 import DeepLabV2
+from ...models.pspnet import PSPNet
 from ...task_template import model_template
 from ...utils import cmd
 
@@ -28,17 +32,22 @@ def deeplabv2():
     return DeepLabV2Model
 
 
-class DeepLabV2Model(model_template.TaskModel):
-    """DeepLab-v2 wrapper (reference model.py:29-84)."""
+def pspnet():
+    return PSPNetModel
 
-    lr_mult_spec = (('classifier', 10.0),)
+
+class _SsegModel(model_template.TaskModel):
+    """The resulter contract around ``self.net``, which returns (logits,
+    latent)."""
+
+    net_class = None
 
     def __init__(self, args):
-        super(DeepLabV2Model, self).__init__(args)
-        self.net = DeepLabV2(backbone=args.backbone,
-                             output_stride=args.output_stride,
-                             num_classes=args.num_classes,
-                             bf16=getattr(args, 'bf16', True))
+        super(_SsegModel, self).__init__(args)
+        self.net = self.net_class(backbone=args.backbone,
+                                  output_stride=args.output_stride,
+                                  num_classes=args.num_classes,
+                                  bf16=getattr(args, 'bf16', True))
 
     def forward(self, inp):
         if len(inp) != 1:
@@ -51,3 +60,17 @@ class DeepLabV2Model(model_template.TaskModel):
             'ssls4l_rc_inp': pred,
             'sslcct_ad_inp': latent,
         }
+
+
+class DeepLabV2Model(_SsegModel):
+    """DeepLab-v2 wrapper (reference model.py:29-84)."""
+
+    net_class = DeepLabV2
+    lr_mult_spec = (('classifier', 10.0),)
+
+
+class PSPNetModel(_SsegModel):
+    """PSPNet wrapper (reference model.py:87-125)."""
+
+    net_class = PSPNet
+    lr_mult_spec = (('psp', 10.0), ('decoder', 10.0))

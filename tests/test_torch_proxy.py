@@ -288,3 +288,106 @@ def test_adv_and_s4l_scripts_stop_at_the_voc_input_path(script, tmp_path,
                                       sseg.SemanticSegmentationProxy,
                                       device='cpu', cli_override=False)
     assert 'ROADMAP A2b' in str(err.value)
+
+
+NEW_SCRIPTS = ['pspnet_pascalvoc_1-8_suponly.py', 'pspnet_pascalvoc_1-8_sslmt.py',
+               'pspnet_pascalvoc_1-8_ssladv.py', 'pspnet_pascalvoc_1-8_ssls4l.py',
+               'pspnet_pascalvoc_1-8_sslgct.py', 'pspnet_pascalvoc_1-8_sslcct.py',
+               'pspnet_pascalvoc_1-8_sslcutmix.py',
+               'pspnet_pascalvoc_1-16_suponly.py',
+               'pspnet_pascalvoc_1-4_suponly.py',
+               'pspnet_pascalvoc_1-2_suponly.py',
+               'pspnet_pascalvoc_full_suponly.py',
+               'deeplabv2_pascalvoc_full_suponly.py']
+
+
+@pytest.mark.parametrize('script', NEW_SCRIPTS)
+def test_pspnet_and_full_scripts_stop_at_the_voc_input_path(script, tmp_path,
+                                                            monkeypatch):
+    """As written, each port copy of the PSPNet scripts and of the full
+    DeepLab-v2 SupOnly script parses every key with no "Unknown argument"
+    warning, holds the JAX script's config (its pretrained checkpoint a
+    ``.pth`` file), and stops at the VOC datasets
+    (ROADMAP A2b). Their output goes under ``tmp_path``."""
+    import runpy
+
+    from pixelssl_tpu_torch.utils import cmd
+
+    here = os.path.dirname(os.path.abspath(pixelssl_tpu_torch.__file__))
+    config = runpy.run_path(os.path.join(here, 'scripts', script))['config']
+    jax_config = runpy.run_path(os.path.join(here, '..', 'scripts',
+                                             script))['config']
+    if jax_config['resume']:  # the port's checkpoints are .pth files
+        jax_config['resume'] = jax_config['resume'].replace('.ckpt', '.pth')
+    assert config == jax_config
+    assert config['im_size'] == (513 if script.startswith('pspnet') else 321)
+    config['out_path'] = str(tmp_path)
+    warnings = []
+    monkeypatch.setattr(cmd.logger, 'log_warn',
+                        lambda *msgs: warnings.append(msgs))
+    parser = pixelssl_tpu_torch.create_parser(config['ssl_algorithm'])
+    sseg.add_parser_arguments(parser)
+    cmd.parse_args(parser, config, cli_override=False)
+    assert warnings == []
+    with pytest.raises(logger.FatalError) as err:
+        pixelssl_tpu_torch.run_script(config, sseg,
+                                      sseg.SemanticSegmentationProxy,
+                                      device='cpu', cli_override=False)
+    assert 'ROADMAP A2b' in str(err.value)
+
+
+def test_run_script_pspnet_cct_matches_jax_and_rescores(tmp_path):
+    """A tiny PSPNet CCT run of each package through ``run_script``'s
+    proxy (ResNet-10, 64 px, 8 synthetic samples, one epoch of 2
+    iterations, one decoder of each family) from the same initial weights:
+    the first iteration's ``task_loss`` and lr within rtol 2e-3 (the
+    weights and the batch are the same; later iterations follow from
+    decoder draws that the packages cannot share, ROADMAP F3), every
+    ``cons_loss`` finite and > 0, and the port's rescore from its
+    ``checkpoint_1.pth`` equal to its training run's validation."""
+    sub_path = tmp_path / 'sublabeled.txt'
+    sub_path.write_text(''.join('synthetic_{0:05d}\n'.format(i)
+                                for i in range(0, 8, 2)))
+    cct = dict(
+        exp_id='cct', ssl_algorithm='ssl_cct', synthetic_samples=8,
+        models={'model': 'pspnet'}, cons_scale=30.0, cons_rampup_epochs=1,
+        ad_lr_scale=10.0, vat_dec_num=1, drop_dec_num=1, cut_dec_num=1,
+        context_dec_num=1, object_dec_num=1, fn_dec_num=1, fd_dec_num=1)
+    for key in ('cons_for_labeled', 'ema_decay'):
+        cct[key] = None
+    try:
+        jconfig = _config(tmp_path / 'jax', sub_path, num_workers=0, **cct)
+        jconfig = collections.OrderedDict(
+            (k, v) for k, v in jconfig.items() if v is not None)
+        parser = jax_runner.create_parser('ssl_cct')
+        jax_sseg.add_parser_arguments(parser)
+        jargs = jax_cmd.parse_args(parser, jconfig, cli_override=False)
+        jproxy = jax_sseg.SemanticSegmentationProxy(
+            jargs, mesh=parallel.make_mesh(1))
+        initial = jax.tree.map(np.asarray,
+                               jax.device_get(jproxy.ssl_algorithm.state))
+        jproxy.run()
+        theirs = _records(tmp_path / 'jax' / 'cct' / 'metrics.jsonl')
+
+        config = collections.OrderedDict(
+            (k, v) for k, v in _config(tmp_path / 'port', sub_path,
+                                       **cct).items() if v is not None)
+        proxy = _port_proxy(config)
+        proxy.ssl_algorithm.modules['model'].load_state_dict(
+            from_jax(initial['model']))
+        proxy.run()
+        ours = _records(tmp_path / 'port' / 'cct' / 'metrics.jsonl')
+
+        train = [r for r in ours if r['phase'] == 'train']
+        jtrain = [r for r in theirs if r['phase'] == 'train']
+        assert [r['iter'] for r in train] == [r['iter'] for r in jtrain] == [
+            1, 2]
+        for key in ('task_loss', 'lr'):
+            assert np.isclose(train[0][key], jtrain[0][key], rtol=2e-3,
+                              atol=1e-6), key
+        for r in train:
+            assert np.isfinite(r['cons_loss']) and r['cons_loss'] > 0, r
+        _check_rescore(config, proxy.args.checkpoint_path, ours, 'resume')
+    finally:
+        shutil.rmtree(tmp_path / 'jax', ignore_errors=True)
+        shutil.rmtree(tmp_path / 'port', ignore_errors=True)
