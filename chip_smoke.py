@@ -5,14 +5,23 @@
 
 Phases, each printing a line as it ends:
 
-1. the card: its name and power limit as ``nvidia-smi`` gives them;
-2. builds ``pixelssl_tpu_torch/csrc/blur.cu`` with ``nvcc`` for sm_90a;
+1. the card: its name and power limit as ``nvidia-smi`` gives them; and
+   what the host offers the VOC input path: ``jpeglib.h``/``png.h`` and
+   libjpeg/libpng on the compiler's paths, ``nvjpeg.h``/libnvjpeg in the
+   CUDA toolkit, whether Pillow and PyYAML are installed (found, not
+   imported) and the CPU count;
+2. builds ``pixelssl_tpu_torch/csrc/blur.cu`` with ``nvcc`` for sm_90a and
+   ``pixelssl_tpu_torch/csrc/augment.cpp`` (the JPEG/PNG decoders and the
+   augmentation of the VOC path) with ``g++``;
 3. holds the blur kernel against its plain PyTorch version in float32 at
    the three shapes of phase 5's GCT step at 321 px, the three of phase
    11's and the three of phase 19's PSPNet GCT script at 513 px (each
    derived from its script's batch and size), a non-square map, a
    map smaller than half the kernel (repeated reflection), the 513 px
-   recipe's widest blur and a map one past the kernel's tiles: max abs error
+   recipe's widest blur, a map one past the kernel's tiles, and kernels
+   past 129 taps: [2,640,640] k=161, [1,1025,1025] k=257, [2,40,48] k=129
+   (folded over several times), k=513 (a strip above 48 KB of shared
+   memory) and k=1025 (three chunks of taps): max abs error
    <= 1e-5; times the kernel, the plain version and one cuBLAS form of the
    same product (``library_ms``, a yardstick the port never calls) with
    CUDA events around 50 calls from Python (``ms``, host overhead
@@ -100,9 +109,30 @@ Phases, each printing a line as it ends:
 19. the PSPNet 1-8 CCT and GCT scripts through ``run_script`` at 513 px on
     synthetic data, batch 2 + 2, 1 epoch of 3 iterations, validation and
     ``checkpoint_1.pth``; CCT rescored from it (atol 1e-4), GCT launching
-    the blur kernel 6 times an iteration.
+    the blur kernel 6 times an iteration;
+20. VOC-A: the DeepLab-v2 1-8 MT script through ``run_script`` at full
+    width (ResNet-101 @321, base 400, batch 2 + 2, two loader workers) on
+    the VOC-format fixture tree ``tests/data/voc_fixture/VOC2012`` (20
+    train images, 10 of them labeled by the script's 1-8 prefix list, 4
+    val images of their own sizes), on the default input path (the port's
+    JPEG decoder and PIL-equal resize), 1 epoch of 5 iterations and
+    validation; cuDNN autotuning off, as a user runs the script;
+21. VOC-B: the same with the DeepLab-v2 1-8 GCT script and
+    ``--native-augment --decoded-cache --u8-transfer``; the blur kernel
+    launched 6 times an iteration; and the C++ augmentation of each
+    fixture sample held against the default path on the same geometry:
+    labels equal on at least 97% of the pixels (the C++ nearest index is
+    float32 arithmetic, PIL's double), and where the image is enlarged
+    every pixel within one grey level (PIL's antialiased filter makes
+    shrunk images differ by design);
+22. VOC-C: the PSPNet 1-8 CCT script @513 (base 513) on the default path.
+    Each VOC phase prints the iteration times and their loader waits
+    (``data_time``) beside 3 bare ``train_step`` calls on a batch of the
+    run, the loader alone in the main process (samples/s of one worker at
+    the crop, and the ms of decoding a sample's JPEG and PNG alone), the
+    peak memory, the losses (finite) and the val scores (in [0, 1]).
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17 and 19 print their step times and peak memory
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19 and 20-22 print their step times and peak memory
 (the harness phases also the peak over the steps after the first, which
 leaves out cuDNN's autotuning of new shapes), and the run its total wall
 time and each phase's.
@@ -111,7 +141,7 @@ Then one JSON line with the kernel's numbers, and as the last line
 result; so does a host without CUDA or a directory without the port. It
 writes nothing but the kernel build under ``pixelssl_tpu_torch/build/``, and
 the checkpoints and run directories in temporary directories that it
-removes.
+removes, and the augmentation library under the same directory.
 """
 
 import argparse
@@ -154,6 +184,11 @@ def gct_blur_cases(batch_size, unlabeled_batch_size, im_size):
 MAIN_PATH_CASES = gct_blur_cases(GCT_BATCH[0], GCT_BATCH[1], IM_SIZE)
 EXTRA_CASES = [(3, 200, 321, 41), (2, 20, 24, 81), (2, 513, 513, 129),
                (1, 65, 33, 21)]
+# kernels past 129 taps (GCT at im_size >= 520): the dilation blur at 640
+# px, k=257 at 1025 px, a map the window folds over several times, a strip
+# above 48 KB of shared memory (k=513) and three chunks of taps (k=1025)
+LARGE_K_CASES = [(2, 640, 640, 161), (1, 1025, 1025, 257), (2, 40, 48, 129),
+                 (1, 1025, 1025, 513), (1, 1025, 1025, 1025)]
 GRAPH_CALLS = 20
 
 
@@ -226,17 +261,64 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/19] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/22] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
+    say('[1/22] host for the VOC input path: ' + '  '.join(
+        '{0} {1}'.format(k, v) for k, v in probe_host().items()))
+    say('[1/22] decoders of the VOC path: JPEG by csrc/augment.cpp '
+        '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
+        'conversion), PNG labels by zlib; built with g++ -lz')
     return card
 
 
+def probe_host():
+    """What the host offers a JPEG/PNG decoder: headers on g++'s include
+    path, libraries on the linker's cache, nvJPEG in the CUDA toolkit,
+    Pillow and PyYAML (found, not imported), the CPU count."""
+    import glob
+    import importlib.util
+    import shutil
+
+    def header(name):
+        if shutil.which('g++') is None:
+            return 'no g++'
+        proc = subprocess.run(['g++', '-E', '-x', 'c++', '-'],
+                              input='#include <{0}>\n'.format(name),
+                              capture_output=True, text=True, timeout=60)
+        return 'found' if proc.returncode == 0 else 'missing'
+
+    ldconfig = subprocess.run(['ldconfig', '-p'], capture_output=True,
+                              text=True, timeout=60).stdout
+    cuda = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    return dict([
+        ('jpeglib.h', header('jpeglib.h')), ('png.h', header('png.h')),
+        ('zlib.h', header('zlib.h')),
+        ('libjpeg', 'found' if 'libjpeg.so' in ldconfig else 'missing'),
+        ('libpng', 'found' if 'libpng' in ldconfig else 'missing'),
+        ('nvjpeg.h', 'found' if os.path.exists(os.path.join(
+            cuda, 'include', 'nvjpeg.h')) else 'missing'),
+        ('libnvjpeg', 'found' if glob.glob(os.path.join(
+            cuda, 'lib64', 'libnvjpeg.so*')) else 'missing'),
+        ('PIL', 'installed' if importlib.util.find_spec('PIL') else
+         'missing'),
+        ('yaml', 'installed' if importlib.util.find_spec('yaml') else
+         'missing'),
+        ('cpu_count', os.cpu_count()),
+    ])
+
+
+
 def phase_build():
+    from pixelssl_tpu_torch.nn import native
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/19] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/22] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+        time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    native.lib()
+    say('[2/22] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -251,14 +333,15 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/19] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/22] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
     cases = ([('gct', c) for c in MAIN_PATH_CASES] +
              [(path, c) for path, calls in script_cases.items()
               for c in calls] +
-             [('extra', c) for c in EXTRA_CASES])
+             [('extra', c) for c in EXTRA_CASES] +
+             [('large_k', c) for c in LARGE_K_CASES])
     for path, (n, h, w, k) in cases:
         x = torch.from_numpy(rng.standard_normal((n, h, w)).astype(
             np.float32)).cuda()
@@ -280,7 +363,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/19] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/22] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -323,7 +406,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/19] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/22] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -417,9 +500,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/19]', 'GCT')
+    algo, batch = build_full_width(args, '[5/22]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/19]', 'GCT',
+        algo, batch, steps, '[5/22]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -483,7 +566,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/19] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/22] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -495,7 +578,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/19] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/22] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -548,16 +631,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/19]', 'MT')
+    algo, batch = build_full_width(args, '[7/22]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/19]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/22]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/19]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/22]', 'MT')
     return algo
 
 
@@ -565,8 +648,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/19]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/19]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/22]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/22]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -597,7 +680,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/19] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/22] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -625,7 +708,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/19] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/22] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -695,20 +778,22 @@ def read_records(config):
         return [json.loads(line) for line in f]
 
 
-def run_script_phase(tag, script, algo_name, out):
-    """``run_script`` of a script config on the card, the blur launches
-    counted from 0 and the peak memory from a reset; every train record's
-    losses finite and > 0 where they are task losses. Returns the config,
-    the proxy, the records and the blur launches."""
+def run_script_phase(tag, script, algo_name, out, config=None):
+    """``run_script`` of a script config (by default ``script_config``'s)
+    on the card, the blur launches counted from 0 and the peak memory from
+    a reset; every train record's losses finite and > 0 where they are task
+    losses. Returns the config, the proxy, the records and the blur
+    launches."""
     import torch
     import pixelssl_tpu_torch
     from pixelssl_tpu_torch.ops import blur
     from pixelssl_tpu_torch.tasks import sseg
 
-    config = script_config(script, out, algo_name)
-    say('{0} run_script {1}: {2} synthetic samples, batch {3}+{4}, '
+    if config is None:
+        config = script_config(script, out, algo_name)
+    say('{0} run_script {1}: {2}, batch {3}+{4}, '
         '{5} epoch(s), {6} workers, exact_val {7}'.format(
-            tag, script, config['synthetic_samples'],
+            tag, script, config['trainset'],
             config['batch_size'] - config['unlabeled_batch_size'],
             config['unlabeled_batch_size'], config['epochs'],
             config['num_workers'], config['exact_val']))
@@ -785,7 +870,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/19]'
+    tag = '[10/22]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -859,7 +944,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/19]'
+    tag = '[11/22]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -982,7 +1067,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/19]', what, args, seed, steps)
+        small_card_vs_cpu('[12/22]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1048,7 +1133,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/19] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/22] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1067,9 +1152,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/19]', what)
+        algo, batch = build_full_width(args, '[13/22]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/19]', what, positive)
+            algo, batch, steps, '[13/22]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1083,7 +1168,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/19] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/22] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1092,7 +1177,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/19]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/22]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1183,7 +1268,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/19]', algo, full_width_args(
+                '[14/22]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1195,7 +1280,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/19]'
+    tag = '[15/22]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1240,7 +1325,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/19]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/22]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1280,7 +1365,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/19] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/22] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1303,15 +1388,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/19]', what)
+        algo, batch = build_full_width(args, '[17/22]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/19] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/22] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/19]', what, positive)
+            algo, batch, steps, '[17/22]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1320,7 +1405,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/19] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/22] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1329,7 +1414,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/19]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/22]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1343,7 +1428,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/19]', algos['ssl_cct'], full_width_args(
+            '[18/22]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1355,7 +1440,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/19]'
+    tag = '[19/22]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1382,6 +1467,134 @@ def phase_script_psp():
             del proxy
         no_workers_left(tag)
     return gct_launches
+
+
+# the VOC phases (20-22): the scripts on the committed VOC-format fixture
+# tree, data keys in YAML flow style as a command line gives them
+VOC_FIXTURE = os.path.join('tests', 'data', 'voc_fixture', 'VOC2012')
+LOADER_SAMPLES = 24
+NATIVE_LABELS_EQUAL = 0.97
+
+
+def voc_config(script, out, **flags):
+    """A script's config as written, its data keys on the fixture tree,
+    ResNet-101 with random weights trained from scratch for 1 epoch, no
+    checkpoint."""
+    config = load_script_config(script)
+    root = os.path.abspath(VOC_FIXTURE)
+    config.update([
+        ('trainset', '{{pascal_voc_aug: [{0}]}}'.format(root)),
+        ('valset', '{{pascal_voc_aug: [{0}]}}'.format(root)),
+        ('backbone', 'resnet101'), ('validation', False), ('resume', ''),
+        ('out_path', out), ('epochs', 1), ('log_freq', 1), ('val_freq', 1),
+        ('checkpoint_freq', 10)])
+    config.update(flags)
+    return config
+
+
+def loader_rate(train_set, n=LOADER_SAMPLES):
+    """Samples/s of one loader worker: ``n`` train samples of ``train_set``
+    (the proxy's wrapped dataset) in the main process, keys past the run's
+    accesses; and the ms of decoding one sample's JPEG and PNG alone."""
+    from pixelssl_tpu_torch.nn import imageio
+
+    t0 = time.perf_counter()
+    for j in range(n):
+        train_set[(j % len(train_set), 1000 + j)]
+    rate = n / (time.perf_counter() - t0)
+    ds = train_set.dataset
+    t0 = time.perf_counter()
+    for j in range(n):
+        img_path, label_path = ds._paths(j % len(ds))
+        imageio.read_rgb(img_path)
+        imageio.read_label(label_path)
+    return rate, 1e3 * (time.perf_counter() - t0) / n
+
+
+def native_against_default(train_set, args, tag):
+    """The C++ augmentation (point-sampled) of each fixture sample against
+    the default path (PIL's filter) on the same draws, uint8 on both: the
+    share of equal labels, and the largest pixel difference where the image
+    is enlarged, where PIL's triangle filter is bilinear interpolation too
+    (it is antialiased when it shrinks)."""
+    import numpy as np
+    from pixelssl_tpu_torch.nn import imageio, native
+    from pixelssl_tpu_torch.tasks.sseg import data as sseg_data
+
+    ds = train_set.dataset
+    crop, base = args.im_size, args.train_base_size
+    worst_labels, worst_up, n_up = 1.0, 0, 0
+    for idx in range(len(ds)):
+        img_path, label_path = ds._paths(idx)
+        image = imageio.read_rgb(img_path)
+        key = (ds._seed, idx, 2000)
+        (oh, ow), (y1, x1), flip = ds._geometry(np.random.default_rng(key),
+                                                *image.shape[:2])
+        rng = np.random.default_rng(key)
+        ref_img, ref_lbl = sseg_data.random_scale_crop(
+            rng, image, imageio.read_label(label_path), base, crop)
+        if rng.random() < 0.5:
+            ref_img, ref_lbl = ref_img[:, ::-1], ref_lbl[:, ::-1]
+        out_img, out_lbl = native.decode_augment_sample_raw(
+            img_path, label_path, (oh, ow), (y1, x1), flip, 0, crop)
+        worst_labels = min(worst_labels, float((out_lbl == ref_lbl).mean()))
+        if oh >= image.shape[0]:
+            n_up += 1
+            worst_up = max(worst_up, int(np.abs(
+                out_img.astype(np.int32) - ref_img).max()))
+    say('{0} C++ augment vs the default path on {1} samples (same draws): '
+        'labels equal on >= {2:.5f} of the pixels; {3} enlarged samples, '
+        'largest pixel difference {4}'.format(tag, len(ds), worst_labels,
+                                              n_up, worst_up))
+    if worst_labels < NATIVE_LABELS_EQUAL or worst_up > 1 or n_up == 0:
+        raise AssertionError('the C++ augmentation differs from the default '
+                             'path beyond its bound')
+
+
+def phase_voc(tag, script, algo_name, launches_per_iter, **flags):
+    """One VOC phase: the script through ``run_script`` on the fixture
+    tree with ``flags``, validation on the 4 val images; then 3 bare
+    ``train_step`` calls on a batch of the run and the loader alone.
+    cuDNN's autotuning is off, as a user runs the script. Returns the blur
+    launches."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            config, proxy, records, launches = run_script_phase(
+                tag, script, algo_name, out, voc_config(script, out, **flags))
+            iters = len(proxy.train_loader)
+            if launches != launches_per_iter * iters:
+                raise AssertionError('blur kernel launched {0} times in {1} '
+                                     'iterations, expected {2}'.format(
+                                         launches, iters,
+                                         launches_per_iter * iters))
+            val = [r for r in records if r['phase'] == 'val'][-1]
+            if not all(0.0 <= v <= 1.0 for k, v in val.items()
+                       if 'metric' in k):
+                raise AssertionError('val scores {0}'.format(val))
+            bare = bare_steps_ms(proxy.ssl_algorithm, proxy.train_loader,
+                                 STEPS)
+            train_set = proxy.train_loader.loader.dataset
+            rate, decode_ms = loader_rate(train_set)
+            say('{0} {1} more train_step calls on a batch on the card: {2} '
+                'ms (median {3:.1f}); the loader alone: {4:.2f} samples/s '
+                'a worker at {5} px ({6} workers); decoding a sample\'s JPEG '
+                'and PNG alone {7:.2f} ms'.format(
+                    tag, STEPS, ' '.join('{0:.1f}'.format(t) for t in bare),
+                    statistics.median(bare), rate, config['im_size'],
+                    config['num_workers'], decode_ms))
+            if flags.get('native_augment'):
+                native_against_default(train_set, proxy.args, tag)
+            del proxy
+        no_workers_left(tag)
+    finally:
+        torch.backends.cudnn.benchmark = True
+    return launches
 
 
 def main(argv=None):
@@ -1415,9 +1628,9 @@ def main(argv=None):
     t_start = time.perf_counter()
     walls = []
 
-    def run(label, fn, *args):
+    def run(label, fn, *args, **kwargs):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         walls.append('{0} {1:.1f}'.format(label, time.perf_counter() - t0))
         return out
 
@@ -1446,6 +1659,11 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
+        run('20', phase_voc, '[20/22]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/22]', SCRIPT_GCT, 'ssl_gct',
+                           BLUR_LAUNCHES_PER_STEP, native_augment=True,
+                           decoded_cache=True, u8_transfer=True)
+        run('22', phase_voc, '[22/22]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1472,6 +1690,8 @@ def main(argv=None):
     script_step['launches'] = script_launches
     pspnet_step = per_step('pspnet_gct')
     pspnet_step['launches'] = psp_launches
+    # phase 21 runs the DeepLab-v2 GCT script's shapes on VOC data
+    voc_step = dict(script_step, launches=voc_launches)
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -1492,12 +1712,15 @@ def main(argv=None):
                'the same for a step of the run_script of phase 11, batch '
                '2+2, from the calls of path script_gct; pspnet_gct: the '
                'same for the PSPNet GCT script of phase 19 at 513 px, batch '
-               '2+2, from the calls of path pspnet_gct',
+               '2+2, from the calls of path pspnet_gct; voc_gct: the GCT '
+               'script on the VOC fixture (phase 21), the shapes of '
+               'script_gct; calls of path large_k: kernels past 129 taps',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
+        'voc_gct': voc_step,
         'calls': rows,
     }
-    say('chip_smoke: all 19 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 22 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

@@ -17,6 +17,8 @@ import itertools
 
 import numpy as np
 
+from ..task_template import data as data_template
+
 
 class _SSLDatasetWrapper(object):
     """Superclass holding labeled/unlabeled index partitions
@@ -107,7 +109,8 @@ class JointDatasetsWrapper(_SSLDatasetWrapper):
     def __len__(self):
         return int(self.labeled_size + self.unlabeled_size)
 
-    def __getitem__(self, idx):
+    def __getitem__(self, key):
+        idx, k = data_template.split_key(key)
         assert 0 <= idx < len(self)
         if idx >= self.labeled_size:
             idx -= self.labeled_size
@@ -116,7 +119,7 @@ class JointDatasetsWrapper(_SSLDatasetWrapper):
             datasets, bounds = self.labeled_datasets, self._labeled_bounds
         ddx = int(np.searchsorted(bounds, idx, side='right'))
         base = 0 if ddx == 0 else int(bounds[ddx - 1])
-        return datasets[ddx][idx - base]
+        return datasets[ddx][(idx - base, k)]
 
 
 class TwoStreamBatchSampler(object):

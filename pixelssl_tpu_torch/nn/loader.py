@@ -10,10 +10,16 @@ samples and ``stack_samples`` stacks them into CPU tensors (pinned by the
 loader when the batches go to the card).
 
 The batch sampler runs in the main process, so that the index sequence is
-the sampler's whatever the worker count. ``to_device`` then makes a batch
-what the algorithms take: NCHW float32 images and int64 labels on the
-device, copied with ``non_blocking`` from pinned memory on the current
-stream and permuted there.
+the sampler's whatever the worker count. So does the count of each
+sample's accesses: an epoch's batches reach the workers as keys
+``(idx, k)``, the k-th access of sample ``idx`` since the loader was made,
+from which the dataset draws its augmentation (JAX ``tasks/sseg/data.py``
+counts them in the dataset, which its loader threads share; a worker
+process would count only its own). ``to_device`` then makes a batch what
+the algorithms take: NCHW images and int64 labels on the device, copied
+with ``non_blocking`` from pinned memory on the current stream and
+permuted there. uint8 images and labels (``--u8-transfer``) stay uint8
+for the copy, and the task's ``device_prep`` normalises and widens them.
 """
 
 import numpy as np
@@ -37,18 +43,26 @@ def stack_samples(samples):
     return inp, gt
 
 
+_NARROW = (torch.uint8, torch.int8, torch.int16)
+
+
 def to_device(inp, gt, device, valid=None):
-    """A batch on ``device``: images [N,H,W,C] -> [N,C,H,W] float32, integer
-    labels -> int64, ``valid`` -> float32."""
+    """A batch on ``device``: images [N,H,W,C] -> [N,C,H,W], float32 or
+    uint8; integer labels -> int64, uint8/int8/int16 ones as they are;
+    ``valid`` -> float32."""
     def image(x):
         x = x.to(device, non_blocking=True)
         if x.dim() == 4:
             x = x.permute(0, 3, 1, 2)
-        return x.float().contiguous()
+        if x.dtype != torch.uint8:
+            x = x.float()
+        return x.contiguous()
 
     def label(x):
         x = x.to(device, non_blocking=True)
-        return x.long() if not x.is_floating_point() else x
+        if x.is_floating_point() or x.dtype in _NARROW:
+            return x
+        return x.long()
 
     batch = {'inp': tuple(image(x) for x in inp),
              'gt': tuple(label(x) for x in gt)}
@@ -82,6 +96,7 @@ class DataLoader(object):
         self.batch_sampler = batch_sampler
         self.device = torch.device(device)
         self._epoch = _EpochBatches()
+        self._accesses = {}  # idx -> accesses handed out so far
         workers = dict(multiprocessing_context=START_METHOD,
                        persistent_workers=True) if num_workers > 0 else {}
         self.loader = torch.utils.data.DataLoader(
@@ -92,7 +107,17 @@ class DataLoader(object):
     def __len__(self):
         return len(self.batch_sampler)
 
+    def _keys(self, batch):
+        keys = []
+        for idx in batch:
+            idx = int(idx)
+            k = self._accesses.get(idx, 0)
+            self._accesses[idx] = k + 1
+            keys.append((idx, k))
+        return keys
+
     def __iter__(self):
-        self._epoch.batches = list(self.batch_sampler)
+        # the epoch's keys are counted when it starts
+        self._epoch.batches = [self._keys(b) for b in self.batch_sampler]
         for inp, gt in self.loader:
             yield to_device(inp, gt, self.device)

@@ -23,6 +23,38 @@ def add_parser_arguments(parser):
                         help='optimizer - weight decay')
     parser.add_argument('--momentum', type=float, default=-1, metavar='',
                         help='optimizer - momentum factor (sgd)')
+    # the JAX package's other optimizer flags: they parse, and any value
+    # but the default is refused (UNPORTED_FLAGS)
+    parser.add_argument('--alpha', type=float, default=-1, metavar='',
+                        help='optimizer - smoothing constant (rmsprop; '
+                             'ROADMAP A3c)')
+    parser.add_argument('--centered', type=cmd.str2bool, default=False,
+                        metavar='', help='optimizer - centered rmsprop '
+                                         '(ROADMAP A3c)')
+    parser.add_argument('--eps', type=float, default=-1, metavar='',
+                        help='optimizer - numerical-stability epsilon '
+                             '(ROADMAP A3c)')
+    parser.add_argument('--beta1', type=float, default=-1, metavar='',
+                        help='optimizer - adam beta1 (ROADMAP A3c)')
+    parser.add_argument('--beta2', type=float, default=-1, metavar='',
+                        help='optimizer - adam beta2 (ROADMAP A3c)')
+    parser.add_argument('--amsgrad', type=cmd.str2bool, default=False,
+                        metavar='', help='optimizer - amsgrad (adam / wdadam; '
+                                         'ROADMAP A3c)')
+    parser.add_argument('--clip-grad-norm', type=float, default=-1,
+                        metavar='', help='optimizer - clip gradients to this '
+                                         'global L2 norm (ROADMAP A3c)')
+    parser.add_argument('--bf16-opt-state', type=cmd.str2bool, default=False,
+                        metavar='', help='optimizer - bf16 optimizer state '
+                                         '(ROADMAP A3c)')
+
+
+# (flag, its default, the ROADMAP item that ports it): any value but the
+# default is refused by the proxy
+UNPORTED_FLAGS = tuple((name, default, 'A3c') for name, default in (
+    ('alpha', -1), ('centered', False), ('eps', -1), ('beta1', -1),
+    ('beta2', -1), ('amsgrad', False), ('clip_grad_norm', -1),
+    ('bf16_opt_state', False)))
 
 
 def _default(value, default):

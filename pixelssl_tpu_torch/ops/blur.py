@@ -18,8 +18,11 @@ the reflect boundary, ``out[n] = Bh @ X[n] @ Bw^T``, computed in float32:
 * on a CPU tensor it runs the plain version ``blur_plain``: the two dense
   banded products from ``_blur_matrix``, as the JAX einsum branch does.
 
-Nothing falls back: a CUDA tensor that meets a failed build or launch
-raises. ``launches`` counts the kernel's calls (one call, two passes).
+The kernel takes every odd kernel size, as the JAX function does: its
+shared-memory strip is sized from k at launch, and a k past 512 taps runs
+in chunks of them. Nothing falls back: a CUDA tensor that meets a failed
+build or launch raises. ``launches`` counts the kernel's calls (one call,
+two passes).
 """
 
 import ctypes
@@ -35,7 +38,6 @@ import torch
 
 from ..nn.module.gaussian_blur import gaussian_kernel_1d
 
-MAX_KERNEL_SIZE = 129  # csrc/blur.cu kMaxHalf = 64
 _MAX_GRID_Z = 65535
 
 launches = 0
@@ -153,9 +155,9 @@ def blur_kernel(x, kernel_size):
         raise ValueError('blur_kernel needs a contiguous [N,H,W] float32 '
                          'tensor, got {0} {1}'.format(x.dtype, tuple(x.shape)))
     n, h, w = x.shape
-    if k % 2 != 1 or not 1 <= k <= MAX_KERNEL_SIZE:
-        raise ValueError('kernel_size must be odd and at most {0}, got {1}'
-                         .format(MAX_KERNEL_SIZE, k))
+    if k % 2 != 1 or k < 1:
+        raise ValueError('kernel_size must be odd and positive, got {0}'
+                         .format(k))
     if h < 2 or w < 2 or n > _MAX_GRID_Z:
         raise ValueError('blur_kernel needs H, W >= 2 and N <= {0}, got {1}'
                          .format(_MAX_GRID_Z, tuple(x.shape)))

@@ -5,9 +5,12 @@ Each script states only its deltas from this base: the reference's
 benchmark configurations (task/sseg/script/*.py). Like the reference, a
 script rescores a pretrained checkpoint by default,
 ``pretrained/<exp_id>.pth`` (script/*.py:24-25); override
-``('validation', False), ('resume', '')`` to train from scratch. The PASCAL
-VOC datasets are not ported yet (ROADMAP A2b): run as written, a script
-stops with that error. ``quickstart_synthetic.py`` runs on synthetic data.
+``('validation', False), ('resume', '')`` to train from scratch. The
+scripts read the PASCAL VOC tree at ``VOC`` (not in the repository: the
+reference's ``dataset/PascalVOC`` download); on another tree, override
+``trainset`` and ``valset``, e.g. ``--trainset "{pascal_voc_aug: [tree]}"``.
+``tests/data/voc_fixture/VOC2012`` is a small tree of that format, and
+``quickstart_synthetic.py`` runs on synthetic data.
 """
 
 import collections

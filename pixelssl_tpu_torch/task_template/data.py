@@ -6,13 +6,12 @@ A task dataset is any object with:
 
 * ``sample_list``, the sample names (the SSL split wrappers reorder it,
   nn/data.py);
-* ``__len__`` and ``__getitem__(idx) -> (inp_tuple, gt_tuple)`` of numpy
-  arrays, NHWC: loader workers never touch torch or the card;
+* ``__len__`` and ``__getitem__(key) -> (inp_tuple, gt_tuple)`` of numpy
+  arrays, NHWC: loader workers never touch torch or the card. The key is
+  an index, or ``(idx, k)`` for the k-th access of a train sample, which
+  the dataset folds into its augmentation draws (``split_key``);
 * optionally ``set_num_labeled(n)``, which ``SplitUnlabeledWrapper`` calls
   so that the dataset can give unlabeled samples an all-ignore label.
-
-The Pillow image reader of the JAX package waits for the VOC datasets
-(ROADMAP A2b).
 """
 
 import zlib
@@ -31,6 +30,14 @@ def dataset_root_key(args, is_train):
     for v in roots.values():
         flat.extend(v if isinstance(v, (list, tuple)) else [v])
     return zlib.crc32('|'.join(sorted(str(p) for p in flat)).encode('utf8'))
+
+
+def split_key(key):
+    """``(idx, k)`` of a dataset key: an ``(idx, k)`` pair as the train
+    loader gives it, or a plain index (validation, a direct access), k 0."""
+    if isinstance(key, tuple):
+        return int(key[0]), int(key[1])
+    return int(key), 0
 
 
 class TaskDataset(object):

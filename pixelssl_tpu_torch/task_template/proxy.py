@@ -9,9 +9,11 @@ validation and checkpoint frequencies. The port runs on one device, the
 ``device`` argument (the card unless the caller asks for the CPU): batch,
 lr and workers are not scaled.
 
-Flags of the JAX package that only its TPU build has parse here, and any
-value but their default is refused (ROADMAP A4); so is ``--visualize``,
-which needs Pillow (ROADMAP A2b).
+Flags of the JAX package that the port lacks parse here, and any value but
+their default is refused with the ROADMAP item that ports them: those of
+its TPU build (A4), ``--visualize`` (A2c), and the optimizer's and the task
+model's (``UNPORTED_FLAGS`` of ``nn/optimizer.py`` and of the task's model
+module; A3c, A3d).
 """
 
 import copy
@@ -24,6 +26,7 @@ import torch
 
 from ..nn import data as nndata
 from ..nn import loader as nnloader
+from ..nn import optimizer as nnoptimizer
 from ..utils import cmd, logger
 from ..utils import device as device_util
 
@@ -33,7 +36,7 @@ _UNPORTED_FLAGS = (
     ('steps_per_dispatch', 1, 'A4'), ('eager_ingest', False, 'A4'),
     ('spatial_val', False, 'A4'), ('spatial_train', 0, 'A4'),
     ('distributed', False, 'A4'), ('profile_dir', '', 'A4'),
-    ('profile_steps', 10, 'A4'), ('visualize', False, 'A2b'))
+    ('profile_steps', 10, 'A4'), ('visualize', False, 'A2c'))
 
 _CHECKPOINT_RE = re.compile(r'^checkpoint_(\d+)\.pth$')
 
@@ -46,7 +49,7 @@ def add_parser_arguments(parser):
     parser.add_argument('--resume', type=str, default='', metavar='', help='exp - checkpoint to resume')
     parser.add_argument('--validation', type=cmd.str2bool, default=False, metavar='', help='exp - validation only')
     parser.add_argument('--out-path', type=str, default='', metavar='', help='exp - output root path')
-    parser.add_argument('--visualize', type=cmd.str2bool, default=False, metavar='', help='exp - save visualization images (ROADMAP A2b)')
+    parser.add_argument('--visualize', type=cmd.str2bool, default=False, metavar='', help='exp - save visualization images (ROADMAP A2c)')
     parser.add_argument('--debug', type=cmd.str2bool, default=False, metavar='', help='exp - debug mode')
     parser.add_argument('--val-freq', type=int, default=1, metavar='', help='exp - validation frequency [epoch]')
     parser.add_argument('--log-freq', type=int, default=100, metavar='', help='exp - logging frequency [iteration]')
@@ -176,13 +179,13 @@ class TaskProxy(object):
         logger.log_mode(args.debug)
         args.task = self.NAME
 
-        for name, default, item in _UNPORTED_FLAGS:
+        for name, default, item in (
+                _UNPORTED_FLAGS + nnoptimizer.UNPORTED_FLAGS +
+                getattr(self.model, 'UNPORTED_FLAGS', ())):
             if getattr(args, name) != default:
                 logger.log_err('--{0} is not ported to pixelssl_tpu_torch yet '
                                '(ROADMAP {1})'.format(name.replace('_', '-'),
                                                       item))
-        if hasattr(self.data, 'refuse_unported'):
-            self.data.refuse_unported(args)
 
         # component dicts (reference proxy.py:198-237); the port's lr
         # schedules are all iteration-wise

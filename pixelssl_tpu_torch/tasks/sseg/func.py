@@ -6,8 +6,8 @@ a discriminator's confidence map [N,1,H,W], where the JAX hooks take and
 give NHWC.
 
 ``metrics`` builds the confusion matrix on the device; only the C x C
-counts cross to the host. The ``--u8-transfer`` form of ``device_prep``
-belongs to the input path, which is not ported yet.
+counts cross to the host. ``device_prep`` normalises ``--u8-transfer``
+batches on the card.
 """
 
 import torch
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from ...ops.confusion import confusion_matrix, scores_from_confusion
 from ...task_template import func_template
 from ...utils import logger
+from . import data
 
 
 def task_func():
@@ -23,6 +24,24 @@ def task_func():
 
 
 class SemanticSegmentationFunc(func_template.TaskFunc):
+    def device_prep(self, batch):
+        """The ``--u8-transfer`` batch made what the algorithms take (JAX
+        func.py:48-65): uint8 images normalised on the device with the host
+        path's mean and std (``data.normalize_image``), uint8/int8/int16
+        labels widened to int64. Other batches pass through unchanged."""
+        inp, gt = batch['inp'], batch['gt']
+        x = inp[0]
+        if x.dtype == torch.uint8:
+            mean = torch.tensor(data.VOC_MEAN, device=x.device)[:, None, None]
+            std = torch.tensor(data.VOC_STD, device=x.device)[:, None, None]
+            inp = ((x.float() / 255.0 - mean) / std,) + tuple(inp[1:])
+        g = gt[0]
+        if g.dtype in (torch.uint8, torch.int8, torch.int16):
+            gt = (g.long(),) + tuple(gt[1:])
+        if inp is batch['inp'] and gt is batch['gt']:
+            return batch
+        return dict(batch, inp=inp, gt=gt)
+
     def metrics(self, pred, gt, inp, meters, id_str=''):
         """Add this batch's confusion matrix to the meter
         ``{id}_confusion_matrix``; the ``{id}_metric_*`` meters then hold

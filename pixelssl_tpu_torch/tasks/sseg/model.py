@@ -26,6 +26,24 @@ def add_parser_arguments(parser):
     parser.add_argument('--bf16', type=cmd.str2bool, default=True, metavar='',
                         help='sseg - bf16 autocast for the convolutions on '
                              'the card (float32 statistics and losses)')
+    # the JAX package's other model flags: they parse, and any value but
+    # the default is refused (UNPORTED_FLAGS)
+    parser.add_argument('--freeze-bn', type=cmd.str2bool, default=False,
+                        metavar='', help='sseg - freeze BatchNorm statistics '
+                                         '(ROADMAP A3d)')
+    parser.add_argument('--pretrained-path', type=str, default='',
+                        metavar='', help='sseg - pretrained backbone '
+                                         'checkpoint (ROADMAP A3d)')
+    parser.add_argument('--remat', type=cmd.str2bool, default=False,
+                        metavar='', help='sseg - recompute backbone '
+                                         'activations in the backward pass '
+                                         '(ROADMAP A3d)')
+
+
+# (flag, its default, the ROADMAP item that ports it): any value but the
+# default is refused by the proxy
+UNPORTED_FLAGS = (('freeze_bn', False, 'A3d'), ('pretrained_path', '', 'A3d'),
+                  ('remat', False, 'A3d'))
 
 
 def deeplabv2():

@@ -71,3 +71,45 @@ def test_conv_blur_matches_jax_and_fused(n, h, w, k):
     np.testing.assert_allclose(ours, theirs, atol=1e-5)
     fused = torch_blur.gaussian_blur_fused(torch.from_numpy(x), k).numpy()
     np.testing.assert_allclose(ours, fused, atol=1e-5)
+
+
+# kernel sizes past the kernel's former 129-tap limit (fault F9): GCT's
+# dilation blur at 640 px (k=odd(640/4)), and a map far smaller than half
+# the kernel, whose window folds over it several times
+@pytest.mark.parametrize('n,h,w,k', [(2, 40, 48, 129), (1, 12, 10, 161),
+                                     (2, 640, 640, 161)])
+def test_fused_blur_matches_jax_past_129_taps(n, h, w, k):
+    x = _maps(n, h, w, seed=k)
+    ref = np.asarray(jax_blur.gaussian_blur_fused(jnp.asarray(x), k,
+                                                  use_pallas=False))
+    out = torch_blur.gaussian_blur_fused(torch.from_numpy(x), k).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one, to follow the
+    dispatch of a CUDA call on a host without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize('k', [161, 257, 1025])
+def test_cuda_call_past_129_taps_reaches_the_kernel(k, monkeypatch):
+    """A CUDA tensor goes to ``blur_kernel`` whatever k is, never to the
+    plain version (F9: the kernel takes every odd k)."""
+    calls = []
+
+    def kernel(x, kernel_size):
+        calls.append((tuple(x.shape), kernel_size))
+        return torch.zeros(x.shape)
+
+    def plain(x, kernel_size):
+        raise AssertionError('the plain version got a CUDA tensor')
+
+    monkeypatch.setattr(torch_blur, 'blur_kernel', kernel)
+    monkeypatch.setattr(torch_blur, 'blur_plain', plain)
+    x = torch.zeros(2, 64, 64, 1).as_subclass(_CudaTyped)
+    out = torch_blur.gaussian_blur_fused(x, k)
+    assert calls == [((2, 64, 64), k)] and out.shape == (2, 64, 64, 1)

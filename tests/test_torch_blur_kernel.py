@@ -6,7 +6,8 @@ only PyTorch is installed. On a host with a card and ``nvcc``:
     python -m pytest --noconftest tests/test_torch_blur_kernel.py -q
 
 Without a card the kernel tests skip. Tolerance: atol 1e-5, float32 sums of
-at most 129 products of O(1) values, in another order than cuBLAS's.
+Gaussian-weighted O(1) values (weights summing to 1), in another order
+than cuBLAS's.
 """
 
 import numpy as np
@@ -19,11 +20,16 @@ from pixelssl_tpu_torch.ops import blur as torch_blur
 # the GCT step's shapes at 321 px; then the edges of the kernel's tiles
 # (pass V: 32 columns by 64 rows, pass H: 32 rows by 64 columns): the
 # smallest map, N = 1 with one row and one column past a tile, maps wider
-# and taller than square, the 513 px recipe's widest blur, and k = 1
+# and taller than square, the 513 px recipe's widest blur, and k = 1; then
+# k past 129 taps: GCT's dilation blur at 640 px, k = 257 at 1025 px, a
+# map folded over several times, 513 taps (a strip above 48 KB of shared
+# memory) and 1025 (three chunks of taps)
 SHAPES = [(2, 33, 33, 5), (2, 48, 64, 17), (3, 20, 20, 41), (2, 20, 24, 81),
           (8, 321, 321, 21), (4, 321, 321, 41), (4, 321, 321, 81),
           (2, 2, 2, 5), (1, 65, 33, 21), (1, 33, 65, 9), (2, 20, 70, 11),
-          (3, 97, 40, 15), (2, 513, 513, 129), (2, 33, 33, 1)]
+          (3, 97, 40, 15), (2, 513, 513, 129), (2, 33, 33, 1),
+          (2, 640, 640, 161), (1, 1025, 1025, 257), (2, 40, 48, 129),
+          (1, 1025, 1025, 513), (1, 1025, 1025, 1025)]
 
 
 def _maps(n, h, w, seed):

@@ -241,7 +241,9 @@ def test_strdict_and_parse_args():
     assert cmd.strdict("{'synthetic_sseg': ['/tmp']}") == {
         'synthetic_sseg': ['/tmp']}
     assert cmd.strdict({'a': 1}) == {'a': 1}
-    for bad in ('{model: deeplabv2}', "['a']"):
+    # YAML flow style, as the JAX package reads dict flags
+    assert cmd.strdict('{model: deeplabv2}') == {'model': 'deeplabv2'}
+    for bad in ("['a']", '{model: [a}', 'model: deeplabv2'):
         with pytest.raises(argparse.ArgumentTypeError):
             cmd.strdict(bad)
     parser = argparse.ArgumentParser()

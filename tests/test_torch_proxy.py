@@ -225,16 +225,23 @@ def test_proxy_and_harness_build_the_same_algorithm(tmp_path):
             assert float(ours[key]) == float(theirs[key]), key
 
 
-@pytest.mark.parametrize('flag,value,item', [
+# the JAX package's flags that the port parses and refuses at any value but
+# their default (the VOC data flags and datasets are ported: they left this
+# table with the refusals)
+UNPORTED = [
     ('steps_per_dispatch', 4, 'A4'), ('eager_ingest', True, 'A4'),
     ('spatial_val', True, 'A4'), ('spatial_train', 2, 'A4'),
     ('distributed', True, 'A4'), ('profile_dir', 'prof', 'A4'),
-    ('profile_steps', 3, 'A4'), ('visualize', True, 'A2b'),
-    ('native_augment', True, 'A2b'),
-    ('decoded_cache', True, 'A2b'), ('u8_transfer', True, 'A2b'),
-    ('trainset', {'pascal_voc_aug': ['voc']}, 'A2b'),
-    ('valset', {'pascal_voc_ori': ['voc']}, 'A2b'),
-])
+    ('profile_steps', 3, 'A4'), ('visualize', True, 'A2c'),
+    ('alpha', 0.99, 'A3c'), ('centered', True, 'A3c'), ('eps', 1e-8, 'A3c'),
+    ('beta1', 0.9, 'A3c'), ('beta2', 0.999, 'A3c'), ('amsgrad', True, 'A3c'),
+    ('clip_grad_norm', 5.0, 'A3c'), ('bf16_opt_state', True, 'A3c'),
+    ('freeze_bn', True, 'A3d'), ('pretrained_path', 'backbone.pth', 'A3d'),
+    ('remat', True, 'A3d'),
+]
+
+
+@pytest.mark.parametrize('flag,value,item', UNPORTED)
 def test_unported_flags_and_datasets_stop(tmp_path, flag, value, item):
     sub = tmp_path / 'sub.txt'
     sub.write_text('synthetic_00000\nsynthetic_00002\n')
@@ -244,6 +251,68 @@ def test_unported_flags_and_datasets_stop(tmp_path, flag, value, item):
                                       sseg.SemanticSegmentationProxy,
                                       device='cpu', cli_override=False)
     assert 'ROADMAP ' + item in str(err.value)
+
+
+def test_unported_flags_parse_at_their_defaults_without_a_warning(
+        monkeypatch):
+    """Each refused flag, at the JAX package's default, parses (no
+    "Unknown argument" warning) and gives that default."""
+    from pixelssl_tpu_torch.utils import cmd
+
+    warnings = []
+    monkeypatch.setattr(cmd.logger, 'log_warn',
+                        lambda *msgs: warnings.append(msgs))
+    defaults = {'alpha': -1, 'centered': False, 'eps': -1, 'beta1': -1,
+                'beta2': -1, 'amsgrad': False, 'clip_grad_norm': -1,
+                'bf16_opt_state': False, 'freeze_bn': False,
+                'pretrained_path': '', 'remat': False}
+    parser = pixelssl_tpu_torch.create_parser('ssl_mt')
+    sseg.add_parser_arguments(parser)
+    args = cmd.parse_args(parser, defaults, cli_override=False)
+    assert warnings == []
+    for name, value in defaults.items():
+        assert getattr(args, name) == value, name
+
+
+def _script_dict_values():
+    """``str()`` of every dict value of the port's 17 experiment scripts."""
+    import runpy
+
+    here = os.path.join(os.path.dirname(os.path.abspath(
+        pixelssl_tpu_torch.__file__)), 'scripts')
+    values = set()
+    for name in sorted(os.listdir(here)):
+        if name.endswith('.py') and 'pascalvoc' in name:
+            config = runpy.run_path(os.path.join(here, name))['config']
+            values.update(str(v) for v in config.values()
+                          if isinstance(v, dict))
+    return sorted(values)
+
+
+YAML_FLOW = [
+    '{model: pspnet}',
+    '{pascal_voc_aug: [dataset/PascalVOC/VOCdevkit/VOC2012]}',
+    '{model: sgd, d_model: adam}',
+    "{a: 1e-3, b: 1.5, c: 1.0e+3, d: .5, e: 010, f: 0x1F, g: 1_000}",
+    '{h: 1:30, i: -.inf, j: yes, k: Off, l: ~, m: null, n: , o: TRUE}',
+    "{p: 'it''s', q: \"a\\tb\\u00e9\", r: [1, [2, {s: t}]], u v: w x}",
+    '{model: {x: [a, b,], y: {}}, z: []}',
+    '{a}', '{a: b:c, d: http://x.y/z}', '{ a : 1 , b : [ 2 , 3 ] }',
+    '{1: 2, 2.5: x, -0: 0b101}', "{'model': 'deeplabv2'}",
+]
+
+
+@pytest.mark.parametrize('text', YAML_FLOW + _script_dict_values())
+def test_strdict_reads_what_yaml_full_load_reads(text):
+    """The dict flags (F7): ``cmd.strdict`` against ``yaml.full_load``,
+    which the JAX package applies to them, on YAML flow mappings (PyYAML's
+    YAML 1.1 scalars: ``1e-3`` a string, ``010`` octal, ``yes`` true) and on
+    the scripts' own values."""
+    import yaml
+
+    from pixelssl_tpu_torch.utils import cmd
+
+    assert repr(cmd.strdict(text)) == repr(yaml.full_load(text))
 
 
 def test_run_script_help_lists_every_flag(monkeypatch, capsys):
@@ -258,14 +327,18 @@ def test_run_script_help_lists_every_flag(monkeypatch, capsys):
         assert flag in out, flag
 
 
+_NO_VOC_TREE = ('Cannot find prefix file: dataset/PascalVOC/VOCdevkit/'
+                'VOC2012/ImageSets/Segmentation/')
+
+
 @pytest.mark.parametrize('script', ['deeplabv2_pascalvoc_1-8_ssladv.py',
                                     'deeplabv2_pascalvoc_1-8_ssls4l.py'])
 def test_adv_and_s4l_scripts_stop_at_the_voc_input_path(script, tmp_path,
                                                         monkeypatch):
     """As written, the 1-8 AdvSSL and S4L scripts parse every key (the
     AdvSSL recipe's vestigial ``milestones``/``gamma`` included, with no
-    "Unknown argument" warning) and stop at the VOC datasets. Their
-    output goes under ``tmp_path``."""
+    "Unknown argument" warning) and stop at the VOC tree, which the
+    repository does not hold. Their output goes under ``tmp_path``."""
     import runpy
 
     from pixelssl_tpu_torch.utils import cmd
@@ -287,7 +360,7 @@ def test_adv_and_s4l_scripts_stop_at_the_voc_input_path(script, tmp_path,
         pixelssl_tpu_torch.run_script(config, sseg,
                                       sseg.SemanticSegmentationProxy,
                                       device='cpu', cli_override=False)
-    assert 'ROADMAP A2b' in str(err.value)
+    assert _NO_VOC_TREE in str(err.value)
 
 
 NEW_SCRIPTS = ['pspnet_pascalvoc_1-8_suponly.py', 'pspnet_pascalvoc_1-8_sslmt.py',
@@ -308,7 +381,8 @@ def test_pspnet_and_full_scripts_stop_at_the_voc_input_path(script, tmp_path,
     DeepLab-v2 SupOnly script parses every key with no "Unknown argument"
     warning, holds the JAX script's config (its pretrained checkpoint a
     ``.pth`` file), and stops at the VOC datasets
-    (ROADMAP A2b). Their output goes under ``tmp_path``."""
+    (its tree, which the repository does not hold). Their output goes
+    under ``tmp_path``."""
     import runpy
 
     from pixelssl_tpu_torch.utils import cmd
@@ -333,7 +407,7 @@ def test_pspnet_and_full_scripts_stop_at_the_voc_input_path(script, tmp_path,
         pixelssl_tpu_torch.run_script(config, sseg,
                                       sseg.SemanticSegmentationProxy,
                                       device='cpu', cli_override=False)
-    assert 'ROADMAP A2b' in str(err.value)
+    assert _NO_VOC_TREE in str(err.value)
 
 
 def test_run_script_pspnet_cct_matches_jax_and_rescores(tmp_path):
