@@ -15,8 +15,9 @@ Phases, each printing a line as it ends:
    augmentation of the VOC path) with ``g++``;
 3. holds the blur kernel against its plain PyTorch version in float32 at
    the three shapes of phase 5's GCT step at 321 px, the three of phase
-   11's and the three of phase 19's PSPNet GCT script at 513 px (each
-   derived from its script's batch and size), a non-square map, a
+   11's, the three of phase 19's PSPNet GCT script at 513 px and the three
+   of phase 23's sreg demo at 64 px (each derived from its script's batch
+   and size), a non-square map, a
    map smaller than half the kernel (repeated reflection), the 513 px
    recipe's widest blur, a map one past the kernel's tiles, and kernels
    past 129 taps: [2,640,640] k=161, [1,1025,1025] k=257, [2,40,48] k=129
@@ -130,10 +131,39 @@ Phases, each printing a line as it ends:
     (``data_time``) beside 3 bare ``train_step`` calls on a batch of the
     run, the loader alone in the main process (samples/s of one worker at
     the crop, and the ms of decoding a sample's JPEG and PNG alone), the
-    peak memory, the losses (finite) and the val scores (in [0, 1]).
+    peak memory, the losses (finite) and the val scores (in [0, 1]);
+23. the pixel-regression task: ``pixelssl_tpu_torch/scripts/
+    sreg_synthetic_sslmt.py``'s config through ``run_script`` (``unet_lite``
+    at base 32, 64 px, 64 synthetic samples, batch 1 + 1, Adam at lr 1e-3
+    with the gradients clipped to norm 5, the poly schedule), MT for the
+    script's 4 epochs and rescored from ``checkpoint_4.pth`` (atol 1e-4),
+    SupOnly (batch 2 + 0), AdvSSL, GCT and S4L for 1 epoch each: every
+    logged loss finite, MSE in [0, 1], MAE and PSNR finite, the blur kernel
+    launched 6 times a GCT iteration, the ms an iteration with its loader
+    wait and the peak memory printed; CCT and CutMix refused by name;
+24. three MT steps at ResNet-10 / 96 px in float32 on the card and on the
+    CPU from the same weights and batch, for each of ``rmsprop`` (centered,
+    momentum) with ``steplr``, ``adam`` (weight decay) with
+    ``multisteplr`` and ``wdadam`` with ``--amsgrad``,
+    ``--clip-grad-norm 1.0`` and ``--bf16-opt-state`` with
+    ``cosineannealinglr``, one iteration an epoch: losses within phase 6's
+    limits, and the optimizer state of a checkpoint loaded into a fresh
+    build on each side in its dtype (bf16 for the last);
+25. the sseg model flags at full width (DeepLab-v2/ResNet-101 @321, MT
+    4 + 4, the 1-8 recipe), three timed steps each from the same weights
+    and batch with ``--remat``, ``--bf16-opt-state`` (bf16 momentum) and
+    ``--freeze-bn`` (its statistics first set to the batch's, as random
+    weights with the init's overflow when frozen; then no running
+    statistic moves) beside the plain run, each with its step ms and peak
+    memory; ``--remat`` held to the plain run in float32 with cuDNN
+    deterministic: steps 0 and 1 within rtol 2e-3 and the BN running
+    statistics after them within atol 1e-4 and rtol 1e-4, step 2 printed
+    beside a second plain run, whose spread there is about 1%; and
+    ``--pretrained-path`` with a torch ResNet-101 checkpoint written from
+    ``--seed``, every backbone tensor copied.
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19 and 20-22 print their step times and peak memory
-(the harness phases also the peak over the steps after the first, which
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23 and 25 print their step
+times and peak memory (the harness phases also the peak over the steps after the first, which
 leaves out cuDNN's autotuning of new shapes), and the run its total wall
 time and each phase's.
 Then one JSON line with the kernel's numbers, and as the last line
@@ -261,12 +291,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/22] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/25] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/22] host for the VOC input path: ' + '  '.join(
+    say('[1/25] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/22] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/25] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -314,11 +344,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/22] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/25] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/22] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/25] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -333,7 +363,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/22] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/25] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -363,7 +393,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/22] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/25] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -406,7 +436,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/22] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/25] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -473,10 +503,11 @@ def full_width_args(algo_name, seed, model='deeplabv2', **config):
     """DeepLab-v2 (321 px) or PSPNet (513 px) on ResNet-101, output stride
     16, 21 classes, bf16 autocast, 20 epochs of the poly schedule."""
     from pixelssl_tpu_torch import harness
-    return harness.default_args(
-        algo_name, models={'model': model}, backbone='resnet101',
-        output_stride=16, im_size=MODEL_IM_SIZE[model], num_classes=21,
-        epochs=20, bf16=True, seed=seed, **config)
+    flags = dict(models={'model': model}, backbone='resnet101',
+                 output_stride=16, im_size=MODEL_IM_SIZE[model],
+                 num_classes=21, epochs=20, bf16=True, seed=seed)
+    flags.update(config)
+    return harness.default_args(algo_name, **flags)
 
 
 def build_full_width(args, tag, what):
@@ -500,9 +531,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/22]', 'GCT')
+    algo, batch = build_full_width(args, '[5/25]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/22]', 'GCT',
+        algo, batch, steps, '[5/25]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -566,7 +597,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/22] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/25] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -578,7 +609,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/22] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/25] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -631,16 +662,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/22]', 'MT')
+    algo, batch = build_full_width(args, '[7/25]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/22]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/25]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/22]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/25]', 'MT')
     return algo
 
 
@@ -648,8 +679,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/22]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/22]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/25]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/25]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -680,7 +711,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/22] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/25] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -708,7 +739,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/22] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/25] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -870,7 +901,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/22]'
+    tag = '[10/25]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -944,7 +975,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/22]'
+    tag = '[11/25]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1067,7 +1098,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/22]', what, args, seed, steps)
+        small_card_vs_cpu('[12/25]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1133,7 +1164,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/22] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/25] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1152,9 +1183,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/22]', what)
+        algo, batch = build_full_width(args, '[13/25]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/22]', what, positive)
+            algo, batch, steps, '[13/25]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1168,7 +1199,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/22] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/25] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1177,7 +1208,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/22]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/25]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1268,7 +1299,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/22]', algo, full_width_args(
+                '[14/25]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1280,7 +1311,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/22]'
+    tag = '[15/25]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1325,7 +1356,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/22]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/25]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1365,7 +1396,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/22] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/25] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1388,15 +1419,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/22]', what)
+        algo, batch = build_full_width(args, '[17/25]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/22] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/25] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/22]', what, positive)
+            algo, batch, steps, '[17/25]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1405,7 +1436,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/22] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/25] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1414,7 +1445,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/22]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/25]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1428,7 +1459,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/22]', algos['ssl_cct'], full_width_args(
+            '[18/25]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1440,7 +1471,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/22]'
+    tag = '[19/25]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1597,6 +1628,461 @@ def phase_voc(tag, script, algo_name, launches_per_iter, **flags):
     return launches
 
 
+# the sreg phase (23): the port's demo script, each algorithm that
+# supports REGRESSION at the script's width (unet_lite base 32, 64 px,
+# 64 samples, batch 1 + 1, Adam with the gradients clipped to norm 5);
+# MT for the script's 4 epochs, the others for 1
+SREG_SCRIPT = 'sreg_synthetic_sslmt.py'
+SREG_EPOCHS = {'ssl_mt': 4, 'ssl_null': 1, 'ssl_adv': 1, 'ssl_gct': 1,
+               'ssl_s4l': 1}
+SREG_REFUSED = {
+    'ssl_cct': dict(cons_scale=1.0, cons_rampup_epochs=1, ad_lr_scale=10.0,
+                    vat_dec_num=1, drop_dec_num=1),
+    'ssl_cutmix': dict(cons_scale=1.0, cons_rampup_epochs=1,
+                       cons_threshold=0.1, ema_decay=0.99, batch_size=3,
+                       unlabeled_batch_size=2)}
+
+
+def load_sreg_demo():
+    """The module globals of the port's sreg demo script."""
+    import runpy
+
+    return runpy.run_path(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), 'pixelssl_tpu_torch',
+        'scripts', SREG_SCRIPT))
+
+
+def sreg_blur_cases():
+    """The blur calls of one GCT step of the sreg demo script."""
+    config = load_sreg_demo()['make_config']('ssl_gct')
+    return gct_blur_cases(config['batch_size'],
+                          config['unlabeled_batch_size'], config['im_size'])
+
+
+def run_sreg(tag, config):
+    """``run_script`` of an sreg config on the card, the blur launches
+    counted from 0 and the peak memory from a reset; every logged loss
+    finite, every val MSE in [0, 1] and MAE and PSNR finite. Returns the
+    proxy, the records and the blur launches."""
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.tasks import sreg
+
+    log = os.path.join(config['out_path'], config['exp_id'], 'metrics.jsonl')
+    earlier = len(read_records(config)) if os.path.exists(log) else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blur.launches = 0
+    t0 = time.perf_counter()
+    proxy = pixelssl_tpu_torch.run_script(
+        config, sreg, sreg.PixelRegressionProxy, device='cuda',
+        cli_override=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = blur.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = read_records(config)[earlier:]
+    for r in records:
+        if r['phase'] == 'train' and not all(
+                math.isfinite(v) for k, v in r.items()
+                if k.endswith('_loss')):
+            raise AssertionError('non-finite loss: {0}'.format(r))
+        if r['phase'] == 'val':
+            for key, value in r.items():
+                if key.endswith('_mse') and not 0.0 <= value <= 1.0:
+                    raise AssertionError('{0} = {1}'.format(key, value))
+                if ('metric' in key or key.endswith('_loss')) and \
+                        not math.isfinite(value):
+                    raise AssertionError('{0} = {1}'.format(key, value))
+    for r in records:
+        if r['phase'] == 'epoch_summary':
+            its = [t for t in records if t['phase'] == 'train' and
+                   t['epoch'] == r['epoch']]
+            say('{0} epoch {1}: {2} iterations in {3:.3f} s, {4:.2f} ms an '
+                'iteration; at each logged iteration, ms an iteration (of it '
+                'waiting for the loader): {5}'.format(
+                    tag, r['epoch'], r['iters'], r['wall_s'],
+                    1e3 * r['wall_s'] / r['iters'], ' '.join(
+                        '{0:.2f} ({1:.2f})'.format(1e3 * t['batch_time'],
+                                                   1e3 * t['data_time'])
+                        for t in its)))
+    val = [r for r in records if r['phase'] == 'val']
+    if not config.get('validation') and len(val) != config['epochs']:
+        raise AssertionError('{0} val records'.format(len(val)))
+    say('{0} {1}: run_script took {2:.1f} s; peak memory {3:.3f} GiB; blur '
+        'launches {4}; last val: {5}'.format(
+            tag, config['ssl_algorithm'], wall_s, peak_gib, launches,
+            '  '.join('{0} {1:.5f}'.format(k, v) for k, v in sorted(
+                val[-1].items()) if 'metric' in k or k.endswith('_loss'))))
+    return proxy, records, launches
+
+
+def phase_sreg():
+    """The sreg demo through ``run_script`` for each of the five
+    algorithms; MT rescored from its last checkpoint; GCT's blur launches
+    counted (returned); CCT and CutMix refused by name."""
+    import tempfile
+
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.tasks import sreg
+    from pixelssl_tpu_torch.utils import logger
+
+    tag = '[23/25]'
+    demo = load_sreg_demo()
+    gct_launches = None
+    for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
+        with tempfile.TemporaryDirectory() as out:
+            config = demo['make_config'](algo_name, out,
+                                         SREG_EPOCHS[algo_name])
+            proxy, records, launches = run_sreg(tag, config)
+            iters = len(proxy.train_loader)
+            steps = proxy.ssl_algorithm.state.step
+            if steps != iters * config['epochs']:
+                raise AssertionError('{0} steps, expected {1}'.format(
+                    steps, iters * config['epochs']))
+            if algo_name == 'ssl_gct':
+                if launches != BLUR_LAUNCHES_PER_STEP * iters:
+                    raise AssertionError(
+                        'blur kernel launched {0} times in {1} iterations, '
+                        'expected {2}'.format(launches, iters,
+                                              BLUR_LAUNCHES_PER_STEP * iters))
+                gct_launches = launches
+            elif launches != 0:
+                raise AssertionError('{0} launched the blur kernel {1} '
+                                     'times'.format(algo_name, launches))
+            if algo_name in ('ssl_mt', 'ssl_gct'):
+                # the launch-bound step alone: bare steps on a batch on the
+                # card, and one under the profiler
+                batch = next(iter(proxy.train_loader))
+                bare = bare_steps_ms(proxy.ssl_algorithm, [batch], STEPS)
+                say('{0} {1}: {2} more train_step calls on a batch on the '
+                    'card: {3} ms'.format(tag, algo_name, STEPS, ' '.join(
+                        '{0:.2f}'.format(t) for t in bare)))
+                profile_step(proxy.ssl_algorithm, batch, bare, tag,
+                             algo_name, top=5)
+            if algo_name == 'ssl_mt':
+                trained = [r for r in records if r['phase'] == 'val'][-1]
+                ckpt = os.path.join(proxy.args.checkpoint_path,
+                                    'checkpoint_{0}.pth'.format(
+                                        config['epochs']))
+                run_sreg(tag, demo['make_config'](
+                    algo_name, out, config['epochs'], rescore=ckpt))
+                rescored = read_records(config)[-1]
+                keys = [k for k in trained
+                        if 'metric' in k or k.endswith('_loss')]
+                diff = max(abs(rescored[k] - trained[k]) for k in keys)
+                say('{0} MT rescore from {1}: {2} scores, largest difference '
+                    'from the training run {3:.3g} (atol {4:g})'.format(
+                        tag, os.path.basename(ckpt), len(keys), diff,
+                        RESCORE_ATOL))
+                if not diff <= RESCORE_ATOL:
+                    raise AssertionError('rescore differs by {0}'.format(
+                        diff))
+            del proxy
+        torch.cuda.empty_cache()
+    for algo_name, flags in SREG_REFUSED.items():
+        with tempfile.TemporaryDirectory() as out:
+            config = demo['make_config']('ssl_mt', out, 1)
+            config.update(flags, ssl_algorithm=algo_name)
+            try:
+                pixelssl_tpu_torch.run_script(
+                    config, sreg, sreg.PixelRegressionProxy, device='cuda',
+                    cli_override=False)
+            except logger.FatalError as exc:
+                if algo_name not in str(exc) or 'regression' not in str(exc):
+                    raise
+                say('{0} {1} refused: {2}'.format(tag, algo_name, exc))
+            else:
+                raise AssertionError('{0} trained on sreg'.format(algo_name))
+    return gct_launches
+
+
+# the optimizer phase (24): each new update rule with an epoch-wise
+# schedule, 3 MT steps on the card and on the CPU from the same weights
+# and batch (ResNet-10, 96 px, float32, as phase 6), one iteration an
+# epoch so that the schedules move every step
+OPTIMIZER_CASES = (
+    ('rmsprop', dict(optimizers={'model': 'rmsprop'}, lr=1e-5,
+                     centered=True, momentum=0.9,
+                     lrers={'model': 'steplr'}, step_size=1, gamma=0.5)),
+    ('adam', dict(optimizers={'model': 'adam'}, lr=1e-5, weight_decay=5e-4,
+                  lrers={'model': 'multisteplr'}, milestones=[1, 2],
+                  gamma=0.3)),
+    ('wdadam', dict(optimizers={'model': 'wdadam'}, lr=1e-5,
+                    weight_decay=1e-2, amsgrad=True, clip_grad_norm=1.0,
+                    bf16_opt_state=True,
+                    lrers={'model': 'cosineannealinglr'}, T_max=4)),
+)
+
+
+def phase_optimizers(seed, steps):
+    """The three configurations card against CPU: losses rtol 2e-3
+    (cons_loss rtol 2e-2, atol 1e-6); then each side's checkpoint loaded
+    into a fresh build, whose optimizer state keeps its dtype (bf16 with
+    ``--bf16-opt-state``)."""
+    import tempfile
+
+    import torch
+    from pixelssl_tpu_torch import harness
+
+    tag = '[24/25]'
+    for name, flags in OPTIMIZER_CASES:
+        args = harness.default_args('ssl_mt', **dict(
+            MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
+            epochs=4, bf16=False, seed=seed, batch_size=4,
+            unlabeled_batch_size=2, momentum=flags.get('momentum', -1),
+            weight_decay=flags.get('weight_decay', -1), **{
+                k: v for k, v in flags.items()
+                if k not in ('momentum', 'weight_decay')}))
+        rows, dtypes = {}, {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for device in ('cpu', 'cuda'):
+                algo = harness.build_algorithm(args, device=device,
+                                               iters_per_epoch=1)
+                batch = harness.synthetic_batch(args, device=device,
+                                                seed=seed)
+                rows[device] = [{k: float(v) for k, v in
+                                 algo.train_step(batch).items()}
+                                for _ in range(steps)]
+                path = algo.save_checkpoint(
+                    steps, path=os.path.join(tmp, device + '.pth'))
+                fresh = harness.build_algorithm(args, device=device,
+                                                iters_per_epoch=1)
+                fresh.load_checkpoint(path)
+                dtypes[device] = sorted({
+                    str(v.dtype) for st in fresh.opt.state.values()
+                    for k, v in st.items() if torch.is_tensor(v)})
+        want = ['torch.bfloat16' if args.bf16_opt_state else 'torch.float32']
+        if dtypes['cpu'] != want or dtypes['cuda'] != want:
+            raise AssertionError('{0} optimizer state after a load: {1}, '
+                                 'expected {2}'.format(name, dtypes, want))
+        worst = 0.0
+        for s, (ref_row, got_row) in enumerate(zip(rows['cpu'],
+                                                   rows['cuda'])):
+            for key, ref in ref_row.items():
+                rtol, atol = (2e-2, 1e-6) if key == 'cons_loss' else (2e-3,
+                                                                      1e-6)
+                got = got_row[key]
+                worst = max(worst, abs(got - ref) / max(abs(ref), 1e-12))
+                if not math.isclose(got, ref, rel_tol=rtol, abs_tol=atol):
+                    raise AssertionError(
+                        '{0} step {1}: {2} on the card {3} vs CPU {4}'.format(
+                            name, s, key, got, ref))
+        say('{0} MT with {1} ({2}; {3}) card vs CPU agree over {4} steps, '
+            'largest relative metric difference {5:.3g}; lr by step: {6}; '
+            'optimizer state after a checkpoint round trip: {7} on both'
+            .format(tag, name, ', '.join(
+                '{0} {1}'.format(k, v) for k, v in sorted(flags.items())
+                if k not in ('optimizers', 'lrers')), args.lrers['model'],
+                steps, worst, ' '.join('{0:.3g}'.format(r['lr'])
+                                       for r in rows['cuda']), want[0]))
+
+
+def bn_stats(module):
+    return {k: v.detach().float().clone() for k, v in
+            module.state_dict().items() if 'running_' in k}
+
+
+def calibrate_bn(algo, batch):
+    """The student's BN running statistics set to the batch's own (one
+    train-mode forward at momentum 1, no gradient), and the teacher made
+    its copy: a frozen ResNet-101 from random weights and the init's
+    statistics (0, 1) overflows within a step, as it would in the JAX
+    package."""
+    import torch
+
+    net = algo.model.net
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    net.train(True)
+    for bn in bns:
+        bn.momentum = 1.0
+    with torch.no_grad():
+        algo.model(tuple(batch['inp']))
+    for bn in bns:
+        bn.momentum = 0.1
+    algo.model.train()
+    algo.teacher.load_state_dict(algo.model.state_dict())
+    if net.training:
+        raise AssertionError('--freeze-bn left the net in train mode')
+
+
+def largest_loss_gap(a, b):
+    """The largest relative difference of two runs' losses, step by step."""
+    return max(abs(y[k] - x[k]) / max(abs(x[k]), 1e-12)
+               for x, y in zip(a, b) for k in x if k.endswith('_loss'))
+
+
+def f32_steps(seed, steps, **flags):
+    """``steps`` MT steps of the full-width recipe in float32 with cuDNN
+    deterministic: each step's losses, and the student's BN running
+    statistics after step 1."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        args = full_width_args('ssl_mt', seed, batch_size=8,
+                               unlabeled_batch_size=4,
+                               **dict(MT_CONFIG, bf16=False, **flags))
+        algo, batch = build_full_width(
+            args, '[25/25]', 'MT float32 ' + (' '.join(sorted(flags)) or
+                                              'plain'))
+        losses, stats = [], None
+        for s in range(steps):
+            metrics = algo.train_step(batch)
+            losses.append({k: float(v) for k, v in metrics.items()
+                           if k.endswith('_loss')})
+            if not all(math.isfinite(v) for v in losses[-1].values()):
+                raise AssertionError('non-finite losses {0}'.format(
+                    losses[-1]))
+            if s == 1:
+                stats = bn_stats(algo.model)
+        del algo, batch
+        torch.cuda.empty_cache()
+        return {'losses': losses, 'stats': stats}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+
+
+def phase_sseg_flags(seed, steps):
+    """The sseg model flags at full width (DeepLab-v2/ResNet-101 @321, MT
+    4 + 4, the 1-8 recipe): in bf16 as the recipe runs, the step time and
+    peak memory with ``--remat``, ``--bf16-opt-state`` and ``--freeze-bn``
+    beside the plain run's; ``--remat`` held to the plain run in float32
+    (``f32_steps``);
+    ``--freeze-bn`` leaving the statistics; ``--pretrained-path`` loading
+    a torch ResNet-101 checkpoint written from ``--seed``."""
+    import statistics
+    import tempfile
+
+    import torch
+    from pixelssl_tpu_torch.models.resnet import resnet101
+
+    tag = '[25/25]'
+    runs = {}
+    for label, flags in (('plain', {}), ('remat', dict(remat=True)),
+                         ('bf16_opt_state', dict(bf16_opt_state=True)),
+                         ('freeze_bn', dict(freeze_bn=True))):
+        args = full_width_args('ssl_mt', seed, batch_size=8,
+                               unlabeled_batch_size=4,
+                               **dict(MT_CONFIG, **flags))
+        algo, batch = build_full_width(args, tag, 'MT ' + label)
+        if label == 'freeze_bn':
+            calibrate_bn(algo, batch)
+        before = bn_stats(algo.model)
+        history, step_ms, _ = timed_steps(
+            algo, batch, steps, tag, 'MT ' + label,
+            ('s_task_loss', 't_task_loss'))
+        runs[label] = dict(history=history, step_ms=step_ms,
+                           peak=torch.cuda.max_memory_allocated(),
+                           before=before, after=bn_stats(algo.model))
+        if label == 'bf16_opt_state':
+            dtypes = {v.dtype for st in algo.opt.state.values()
+                      for v in st.values() if torch.is_tensor(v)}
+            if dtypes != {torch.bfloat16}:
+                raise AssertionError('optimizer state {0}'.format(dtypes))
+        del algo, batch
+        torch.cuda.empty_cache()
+
+    for label, run in runs.items():
+        say('{0} {1}: median step {2:.1f} ms over the steps after the first; '
+            'peak memory over the steps after the first {3:.3f} GiB'.format(
+                tag, label, statistics.median(run['step_ms'][1:]),
+                run['peak'] / 2 ** 30))
+    # remat against plain in float32 with cuDNN deterministic, beside a
+    # second plain run: at the recipe's lr from random weights the card's
+    # own run-to-run spread grows from ~1e-6 on step 1 to about 1% on step 2
+    # (the resize's backward sums with atomics), so steps 0-1 and the BN
+    # statistics after them are held, and step 2 is printed beside the
+    # spread
+    f32 = {label: f32_steps(seed, steps, **flags) for label, flags in (
+        ('plain', {}), ('plain2', {}), ('remat', dict(remat=True)))}
+    for s_ in range(2):
+        for key, value in f32['plain']['losses'][s_].items():
+            got = f32['remat']['losses'][s_][key]
+            if not math.isclose(got, value, rel_tol=2e-3, abs_tol=1e-6):
+                raise AssertionError('remat step {0}: {1} {2} vs {3}'.format(
+                    s_, key, got, value))
+    # atol 1e-4 with rtol 1e-4 beside it, as tests/test_torch_gct.py
+    # holds the statistics: the deep layers' running variances reach O(10)
+    worst = max(float(((f32['plain']['stats'][k] - f32['remat']['stats'][k])
+                       .abs() / (1e-4 + 1e-4 * f32['plain']['stats'][k]
+                                 .abs())).max())
+                for k in f32['plain']['stats'])
+    if not worst <= 1.0:
+        raise AssertionError('remat BN statistics differ by {0} x their '
+                             'tolerance'.format(worst))
+
+    def gaps(a, b):
+        return ' '.join('{0:.3g}'.format(largest_loss_gap([x], [y]))
+                        for x, y in zip(f32[a]['losses'], f32[b]['losses']))
+
+    say('{0} remat against plain in float32, cuDNN deterministic: largest '
+        'relative loss difference by step {1} (steps 0-1 within rtol '
+        '2e-3), BN running statistics after step 1 apart by {2:.3g} of '
+        'their tolerance (atol 1e-4, rtol 1e-4); a second plain run against the first, by step: {3}; in '
+        'bf16, remat against plain {4:.3g}, and at step 1 the bf16 optimizer '
+        'state against plain {5:.3g} (its step 0 updates the weights as '
+        'plain does); bf16 step ms {6:.1f} with remat against {7:.1f}, peak '
+        '{8:.3f} against {9:.3f} GiB, {10:.3f} GiB with the bf16 optimizer '
+        'state'.format(
+            tag, gaps('plain', 'remat'), worst, gaps('plain', 'plain2'),
+            largest_loss_gap(runs['plain']['history'],
+                             runs['remat']['history']),
+            largest_loss_gap(runs['plain']['history'][1:2],
+                             runs['bf16_opt_state']['history'][1:2]),
+            statistics.median(runs['remat']['step_ms'][1:]),
+            statistics.median(runs['plain']['step_ms'][1:]),
+            runs['remat']['peak'] / 2 ** 30, runs['plain']['peak'] / 2 ** 30,
+            runs['bf16_opt_state']['peak'] / 2 ** 30))
+    frozen, plain = runs['freeze_bn'], runs['plain']
+    moved = [k for k in frozen['before']
+             if not torch.equal(frozen['before'][k], frozen['after'][k])]
+    if moved:
+        raise AssertionError('--freeze-bn moved {0}'.format(moved[:3]))
+    if all(torch.equal(plain['before'][k], plain['after'][k])
+           for k in plain['before']):
+        raise AssertionError('the plain run moved no BN statistics')
+    say('{0} freeze_bn (statistics calibrated on the batch first): all {1} '
+        'running statistics unchanged after {2} steps'.format(
+            tag, len(frozen['before']), steps))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'resnet101.pth')
+        net = resnet101(16)
+        generator = torch.Generator().manual_seed(seed + 7)
+        state = {k: (torch.randn(v.shape, generator=generator)
+                     if v.is_floating_point() else v)
+                 for k, v in net.state_dict().items()}
+        state['fc.weight'] = torch.randn(1000, 2048, generator=generator)
+        state['fc.bias'] = torch.zeros(1000)
+        torch.save(state, path)
+        args = full_width_args('ssl_mt', seed, batch_size=8,
+                               unlabeled_batch_size=4, pretrained_path=path,
+                               **MT_CONFIG)
+        algo, _ = build_full_width(args, tag, 'MT pretrained_path')
+        ours = algo.model.state_dict()
+        backbone = [k for k in ours if k.startswith('net.backbone.') and
+                    not k.endswith('num_batches_tracked')]
+        copied = sum(torch.equal(ours[k].cpu(), state[k[len('net.backbone.'):]])
+                     for k in backbone)
+        teacher = algo.teacher.state_dict()
+        same_teacher = all(torch.equal(teacher[k].float(), ours[k].float())
+                           for k in backbone)
+    say('{0} pretrained_path: {1} of the backbone\'s {2} tensors copied '
+        'from a torch ResNet-101 checkpoint ({3} keys, fc included); the '
+        'teacher starts from them: {4}'.format(
+            tag, copied, len(backbone), len(state), same_teacher))
+    if copied != len(backbone) or not same_teacher:
+        raise AssertionError('pretrained backbone: {0} of {1} copied'.format(
+            copied, len(backbone)))
+    del algo
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -1639,7 +2125,8 @@ def main(argv=None):
         run('2', phase_build)
         rows, floor_ms = run('3', phase_kernel, opts.seed, {
             'script_gct': script_blur_cases(SCRIPT_GCT),
-            'pspnet_gct': script_blur_cases(SCRIPT_PSP_GCT)})
+            'pspnet_gct': script_blur_cases(SCRIPT_PSP_GCT),
+            'sreg_gct': sreg_blur_cases()})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -1659,11 +2146,14 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/22]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/22]', SCRIPT_GCT, 'ssl_gct',
+        run('20', phase_voc, '[20/25]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/25]', SCRIPT_GCT, 'ssl_gct',
                            BLUR_LAUNCHES_PER_STEP, native_augment=True,
                            decoded_cache=True, u8_transfer=True)
-        run('22', phase_voc, '[22/22]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('22', phase_voc, '[22/25]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        sreg_launches = run('23', phase_sreg)
+        run('24', phase_optimizers, opts.seed, STEPS)
+        run('25', phase_sseg_flags, opts.seed, STEPS)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -1692,6 +2182,8 @@ def main(argv=None):
     pspnet_step['launches'] = psp_launches
     # phase 21 runs the DeepLab-v2 GCT script's shapes on VOC data
     voc_step = dict(script_step, launches=voc_launches)
+    sreg_step = per_step('sreg_gct')
+    sreg_step['launches'] = sreg_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -1714,13 +2206,16 @@ def main(argv=None):
                'same for the PSPNet GCT script of phase 19 at 513 px, batch '
                '2+2, from the calls of path pspnet_gct; voc_gct: the GCT '
                'script on the VOC fixture (phase 21), the shapes of '
-               'script_gct; calls of path large_k: kernels past 129 taps',
+               'script_gct; sreg_gct: the same for the sreg demo\'s GCT '
+               '(phase 23) at 64 px, batch 1+1, from the calls of path '
+               'sreg_gct; calls of path large_k: kernels past 129 taps',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
+        'sreg_gct': sreg_step,
         'calls': rows,
     }
-    say('chip_smoke: all 22 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 25 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

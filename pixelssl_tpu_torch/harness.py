@@ -18,10 +18,12 @@ import numpy as np
 import torch
 
 from . import runner
+from .nn import loader as nnloader
 from .utils import device as device_util
 
 _TASK_DEFAULTS = {
     'sseg': {'model': 'deeplabv2', 'criterion': 'sseg_criterion'},
+    'sreg': {'model': 'unet_lite', 'criterion': 'sreg_criterion'},
 }
 
 
@@ -29,6 +31,9 @@ def _task_module(task):
     if task == 'sseg':
         from .tasks import sseg
         return sseg
+    if task == 'sreg':
+        from .tasks import sreg
+        return sreg
     raise ValueError('Unknown task: {0!r}'.format(task))
 
 
@@ -67,36 +72,46 @@ def build_algorithm(args, device='cuda', iters_per_epoch=10):
 
 def synthetic_batch(args, device='cuda', seed=0):
     """One synthetic two-stream train batch, labeled first: the numpy draws
-    of the JAX harness's ``synthetic_batch``, as NCHW images and [N,H,W]
-    int64 labels (-1 on the unlabeled rows)."""
+    of the JAX harness's ``synthetic_batch``, as NCHW images and, for
+    ``sseg``, [N,H,W] int64 labels (-1 on the unlabeled rows), for
+    ``sreg`` [N,1,H,W] float32 maps in [0, 1) (0 on the unlabeled rows)."""
     device = device_util.resolve(device)
     rng = np.random.default_rng(seed)
     b, s = args.batch_size, args.im_size
     img = rng.standard_normal((b, s, s, 3)).astype(np.float32)
-    gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
-    if args.unlabeled_batch_size > 0:
-        gt[args.labeled_batch_size:] = -1
+    if getattr(args, 'task', 'sseg') == 'sreg':
+        gt = rng.uniform(0.0, 1.0, (b, s, s, 1)).astype(np.float32)
+        if args.unlabeled_batch_size > 0:
+            gt[args.labeled_batch_size:] = 0.0
+    else:
+        gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
+        if args.unlabeled_batch_size > 0:
+            gt[args.labeled_batch_size:] = -1
     return _to_batch(img, gt, device)
 
 
 def synthetic_val_batches(args, n, device='cuda', seed=0):
     """``n`` labeled eval batches of ``labeled_batch_size`` samples for
     ``validate``, drawn with numpy as ``synthetic_batch`` draws: NCHW
-    images and [N,H,W] int64 labels in [0, num_classes)."""
+    images and [N,H,W] int64 labels in [0, num_classes) (``sseg``) or
+    [N,1,H,W] float32 maps in [0, 1) (``sreg``)."""
     device = device_util.resolve(device)
     rng = np.random.default_rng(seed)
     b, s = args.labeled_batch_size, args.im_size
     batches = []
     for _ in range(n):
         img = rng.standard_normal((b, s, s, 3)).astype(np.float32)
-        gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
+        if getattr(args, 'task', 'sseg') == 'sreg':
+            gt = rng.uniform(0.0, 1.0, (b, s, s, 1)).astype(np.float32)
+        else:
+            gt = rng.integers(0, args.num_classes, (b, s, s)).astype(
+                np.int32)
         batches.append(_to_batch(img, gt, device))
     return batches
 
 
 def _to_batch(img, gt, device):
-    """NHWC float32 images and [N,H,W] labels (numpy) -> a batch of NCHW
-    images and int64 labels on ``device``."""
-    img = torch.from_numpy(img).permute(0, 3, 1, 2).contiguous().to(device)
-    gt = torch.from_numpy(gt).long().to(device)
-    return {'inp': (img,), 'gt': (gt,)}
+    """NHWC float32 images and [N,H,W] labels or [N,H,W,1] float maps
+    (numpy) -> a batch as the loader gives it (``nn.loader.to_device``)."""
+    return nnloader.to_device((torch.from_numpy(img),),
+                              (torch.from_numpy(gt),), device)

@@ -41,10 +41,10 @@ class DeepLabV2(nn.Module):
     """Returns (logits at input resolution, backbone feature)."""
 
     def __init__(self, backbone='resnet101', output_stride=16, num_classes=21,
-                 bf16=False):
+                 bf16=False, remat=False):
         super(DeepLabV2, self).__init__()
         self.bf16 = bf16
-        self.backbone = build_backbone(backbone, output_stride)
+        self.backbone = build_backbone(backbone, output_stride, remat=remat)
         self.classifier = ASPPClassifier(2048, num_classes)
 
     def init_weights(self, generator=None):

@@ -7,7 +7,8 @@ NCHW.
   statistics in float32 (reference batchnorm.py:113-125). On one value per
   channel (PSPNet's 1x1 pyramid bin on one row) it normalises with variance
   0 and moves the running variance by ``var * n / max(n - 1, 1)`` = 0, as
-  the JAX layer does, where PyTorch's raises.
+  the JAX layer does, where PyTorch's raises. ``sample_weight`` keeps rows
+  of weight 0 out of the statistics.
 * ``resize_bilinear``: both ``align_corners`` conventions. ``F.interpolate``
   is the same two-tap arithmetic as the JAX interpolation matrices.
 * ``resize_nearest``: source index ``i * in // out`` in integers, a gather;
@@ -34,26 +35,54 @@ import torch.nn.functional as F
 
 
 class SyncBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over (N, H, W) with torch-compatible statistics."""
+    """BatchNorm over (N, H, W) with torch-compatible statistics.
+
+    ``forward(x, sample_weight)``: rows of weight 0 stay out of the batch
+    statistics, as the JAX layer's ``sample_weight`` keeps padded samples
+    out (its layers.py:50-89). ``update_stats`` False normalises with the
+    batch statistics but leaves the running ones where they are: the
+    recompute of a ``--remat`` block (``models/resnet.py``) runs its
+    forward a second time, which must not move them again.
+    """
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5):
         super(SyncBatchNorm, self).__init__(num_features, eps=eps,
                                             momentum=momentum)
+        self.update_stats = True
 
-    def forward(self, x):
-        if not self.training or x.numel() != x.shape[1]:
+    def forward(self, x, sample_weight=None):
+        if not self.training:
             return super(SyncBatchNorm, self).forward(x)
-        # one value per channel: biased variance 0, unbiased 0 * 1 / 1
+        if sample_weight is None and x.numel() != x.shape[1]:
+            if self.update_stats:
+                return super(SyncBatchNorm, self).forward(x)
+            # scratch copies take the update: the autograd graph saves the
+            # same tensors as the forward that moved the real statistics
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
+        # the statistics by hand: weighted rows, or one value per channel
+        # (biased variance 0, unbiased 0 * 1 / 1)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
-        # in place on ``.data``, as PyTorch's kernel updates them: an
-        # earlier forward's backward may still hold these buffers
-        for stat, batch in ((self.running_mean, mean),
-                            (self.running_var, var)):
-            stat.data.mul_(1.0 - self.momentum).add_(batch.detach(),
-                                                     alpha=self.momentum)
-        self.num_batches_tracked.data.add_(1)
+        per_sample = x.shape[2] * x.shape[3]
+        if sample_weight is None:
+            count = xf.new_tensor(float(x.shape[0] * per_sample))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+        else:
+            w = sample_weight.float().reshape(-1, 1, 1, 1)
+            count = sample_weight.float().sum() * per_sample
+            mean = (xf * w).sum(dim=(0, 2, 3)) / count
+            var = (xf.square() * w).sum(dim=(0, 2, 3)) / count - mean.square()
+        if self.update_stats:
+            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+            # in place on ``.data``, as PyTorch's kernel updates them: an
+            # earlier forward's backward may still hold these buffers
+            for stat, batch in ((self.running_mean, mean),
+                                (self.running_var, unbiased)):
+                stat.data.mul_(1.0 - self.momentum).add_(batch.detach(),
+                                                         alpha=self.momentum)
+            self.num_batches_tracked.data.add_(1)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean[None, :, None, None]) * inv[None, :, None, None] +
                 self.bias[None, :, None, None]).to(x.dtype)

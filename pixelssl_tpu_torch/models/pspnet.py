@@ -121,10 +121,10 @@ class PSPNet(nn.Module):
     ResNet-50/101)."""
 
     def __init__(self, backbone='resnet101', output_stride=16, num_classes=21,
-                 bf16=False):
+                 bf16=False, remat=False):
         super(PSPNet, self).__init__()
         self.bf16 = bf16
-        self.backbone = build_backbone(backbone, output_stride)
+        self.backbone = build_backbone(backbone, output_stride, remat=remat)
         self.psp = PSPModule(2048)
         self.decoder = UpsampleDecoder(512, num_classes, upscale=8)
 

@@ -7,13 +7,22 @@ stride on the 3x3 conv, output stride 16 via strides (1,2,2,1) and
 dilations (1,1,1,2) (8 via (1,2,1,1) and (1,1,2,4)), and the multi-grid
 unit (1,2,4) in layer4. Module names follow the reference's state dict
 (conv1/bn1/layerX.Y/downsample.{0,1}).
+
+``remat=True`` (``--remat``) checkpoints every bottleneck, as the JAX
+package's ``nn.remat`` does (its resnet.py:71-94): the backward pass
+recomputes each block's activations from its input. The recompute runs
+the block's BatchNorms with ``update_stats`` off, so that the running
+statistics move once a forward, as without remat.
 """
 
+import contextlib
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import SyncBatchNorm
 
@@ -56,11 +65,31 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
+def _recompute_contexts(block):
+    """``context_fn`` of ``checkpoint``: nothing around the forward; the
+    recompute with the block's BatchNorms leaving their statistics."""
+    bns = [m for m in block.modules() if isinstance(m, SyncBatchNorm)]
+
+    @contextlib.contextmanager
+    def frozen_stats():
+        for bn in bns:
+            bn.update_stats = False
+        try:
+            yield
+        finally:
+            for bn in bns:
+                bn.update_stats = True
+
+    return contextlib.nullcontext(), frozen_stats()
+
+
 class ResNet(nn.Module):
     """Dilated multi-grid ResNet trunk returning the layer4 feature map."""
 
-    def __init__(self, layers, output_stride=16, multi_grid=(1, 2, 4)):
+    def __init__(self, layers, output_stride=16, multi_grid=(1, 2, 4),
+                 remat=False):
         super(ResNet, self).__init__()
+        self.remat = remat
         if output_stride == 16:
             strides, dilations = (1, 2, 2, 1), (1, 1, 1, 2)
         elif output_stride == 8:
@@ -97,29 +126,35 @@ class ResNet(nn.Module):
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
-        x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
-        return self.layer4(x)
+        remat = self.remat and torch.is_grad_enabled()
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                if remat:
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=functools.partial(
+                                       _recompute_contexts, block))
+                else:
+                    x = block(x)
+        return x
 
 
-def resnet50(output_stride):
-    return ResNet((3, 4, 6, 3), output_stride)
+def resnet50(output_stride, remat=False):
+    return ResNet((3, 4, 6, 3), output_stride, remat=remat)
 
 
-def resnet101(output_stride):
-    return ResNet((3, 4, 23, 3), output_stride)
+def resnet101(output_stride, remat=False):
+    return ResNet((3, 4, 23, 3), output_stride, remat=remat)
 
 
-def resnet10(output_stride):
+def resnet10(output_stride, remat=False):
     """One block per stage: the test size (no reference analog)."""
-    return ResNet((1, 1, 1, 1), output_stride)
+    return ResNet((1, 1, 1, 1), output_stride, remat=remat)
 
 
-def build_backbone(name, output_stride):
+def build_backbone(name, output_stride, remat=False):
     name = name.split('-')[0]  # 'resnet101-coco' -> 'resnet101'
     builders = {'resnet10': resnet10, 'resnet50': resnet50,
                 'resnet101': resnet101}
     if name not in builders:
         raise ValueError('Unsupported backbone: {0}'.format(name))
-    return builders[name](output_stride)
+    return builders[name](output_stride, remat=remat)

@@ -49,6 +49,7 @@ _NARROW = (torch.uint8, torch.int8, torch.int16)
 def to_device(inp, gt, device, valid=None):
     """A batch on ``device``: images [N,H,W,C] -> [N,C,H,W], float32 or
     uint8; integer labels -> int64, uint8/int8/int16 ones as they are;
+    float maps [N,H,W,C] (the regression task's GT) -> [N,C,H,W];
     ``valid`` -> float32."""
     def image(x):
         x = x.to(device, non_blocking=True)
@@ -60,7 +61,9 @@ def to_device(inp, gt, device, valid=None):
 
     def label(x):
         x = x.to(device, non_blocking=True)
-        if x.is_floating_point() or x.dtype in _NARROW:
+        if x.is_floating_point():
+            return x.permute(0, 3, 1, 2).contiguous() if x.dim() == 4 else x
+        if x.dtype in _NARROW:
             return x
         return x.long()
 

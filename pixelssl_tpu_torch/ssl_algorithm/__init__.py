@@ -58,19 +58,15 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
     for cname in args.models.keys():
         for mod, registry, kind in ((model, args.models, 'model'),
                                     (criterion, args.criterions,
-                                     'criterion'),
-                                    (nnlrer, args.lrers, 'lrer'),
-                                    (nnoptimizer, args.optimizers,
-                                     'optimizer')):
+                                     'criterion')):
             if not hasattr(mod, registry[cname]):
                 logger.log_err('Unknown {0} `{1}` for component `{2}`'
                                .format(kind, registry[cname], cname))
         model_dict[cname] = getattr(model, args.models[cname])()
         criterion_dict[cname] = getattr(
             criterion, args.criterions[cname])()(args)
-        lrer_dict[cname] = getattr(nnlrer, args.lrers[cname])(args)
-        optimizer_dict[cname] = getattr(nnoptimizer,
-                                        args.optimizers[cname])(args)
+        lrer_dict[cname] = nnlrer.get(args.lrers[cname])(args)
+        optimizer_dict[cname] = nnoptimizer.get(args.optimizers[cname])(args)
     task_func = func.task_func()(args)
 
     algo = get_builder(args.ssl_algorithm)(

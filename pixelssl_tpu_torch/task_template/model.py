@@ -7,7 +7,9 @@ A task model is an ``nn.Module`` whose ``forward(inp_tuple)`` returns a
 ``'activated_pred'`` (tuple of activated outputs), NCHW. The reference's
 param groups (backbone 1x lr, heads 10x) are ``lr_mult_spec`` rules on
 parameter names; ``param_groups()`` turns them into optimizer groups that
-carry their ``lr_mult``.
+carry their ``lr_mult``. ``init_weights`` initialises from the generator
+and then, with ``--pretrained-path``, loads that checkpoint
+(``load_pretrained``; JAX model.py:46-57).
 """
 
 import torch.nn as nn
@@ -26,6 +28,17 @@ class TaskModel(nn.Module):
 
     def init_weights(self, generator=None):
         self.net.init_weights(generator)
+        path = getattr(self.args, 'pretrained_path', '') if self.args else ''
+        if path:
+            self.load_pretrained(path)
+
+    def load_pretrained(self, path):
+        """Default: the file is a torch ResNet backbone checkpoint, loaded
+        into ``net.backbone``. Task models override to dispatch full-model
+        converters. Returns the tensors copied."""
+        from ..models import convert
+        return convert.load_pretrained_backbone(
+            self, convert.load_torch_state_dict(path))
 
     def lr_rule(self, name):
         """(the first rule's substring that ``name`` holds, its

@@ -11,9 +11,7 @@ lr and workers are not scaled.
 
 Flags of the JAX package that the port lacks parse here, and any value but
 their default is refused with the ROADMAP item that ports them: those of
-its TPU build (A4), ``--visualize`` (A2c), and the optimizer's and the task
-model's (``UNPORTED_FLAGS`` of ``nn/optimizer.py`` and of the task's model
-module; A3c, A3d).
+its TPU build (A4) and ``--visualize`` (A2c).
 """
 
 import copy
@@ -26,7 +24,7 @@ import torch
 
 from ..nn import data as nndata
 from ..nn import loader as nnloader
-from ..nn import optimizer as nnoptimizer
+from ..nn import lrer as nnlrer
 from ..utils import cmd, logger
 from ..utils import device as device_util
 
@@ -179,23 +177,30 @@ class TaskProxy(object):
         logger.log_mode(args.debug)
         args.task = self.NAME
 
-        for name, default, item in (
-                _UNPORTED_FLAGS + nnoptimizer.UNPORTED_FLAGS +
-                getattr(self.model, 'UNPORTED_FLAGS', ())):
+        for name, default, item in _UNPORTED_FLAGS:
             if getattr(args, name) != default:
                 logger.log_err('--{0} is not ported to pixelssl_tpu_torch yet '
                                '(ROADMAP {1})'.format(name.replace('_', '-'),
                                                       item))
 
-        # component dicts (reference proxy.py:198-237); the port's lr
-        # schedules are all iteration-wise
+        # component dicts and the kind of their lr schedules (reference
+        # proxy.py:198-237, JAX proxy.py:241-257)
         dicts = [args.models, args.optimizers, args.lrers, args.criterions]
+        if len(set(len(d) for d in dicts)) != 1:
+            logger.log_err('models/optimizers/lrers/criterions dicts must '
+                           'have the same keys')
         for d in dicts[1:]:
             if set(d.keys()) != set(args.models.keys()):
                 logger.log_err('models/optimizers/lrers/criterions dicts must '
                                'have the same keys')
+        if len(set(name in nnlrer.EPOCH_LRERS
+                   for name in args.lrers.values())) > 1:
+            logger.log_err('All lrers must be of the same kind '
+                           '(epoch-wise or iter-wise), reference '
+                           'proxy.py:218-237')
         if args.lrers:
-            args.is_epoch_lrer = False
+            args.is_epoch_lrer = (list(args.lrers.values())[0] in
+                                  nnlrer.EPOCH_LRERS)
 
         # one device: batch, lr and workers as the config gives them
         args.n_devices = 1

@@ -8,10 +8,22 @@ logits) and the CCT key (the latent: DeepLab-v2's backbone feature,
 PSPNet's PSP output) (reference model.py:60-73). Heads train at 10x the
 backbone's lr: DeepLab-v2's classifier (model.py:45-48), PSPNet's PSP
 module and decoder (model.py:103-107), three lr groups.
+
+* ``--freeze-bn``: the net runs in eval mode whatever mode the task model
+  is put in (``train`` keeps ``net`` in eval), so BatchNorm normalises with
+  its running statistics and never moves them (JAX model.py:64,
+  ``train and not freeze_bn``); gradients still flow through it.
+* ``--pretrained-path``: a torch checkpoint loaded after the
+  initialisation: the reference's full DeepLab-v2 or PSPNet (keys under
+  ``backbone.``/``model.backbone.``), else a bare torch ResNet into the
+  backbone (JAX model.py:75-84, ``models/convert.py``).
+* ``--remat``: every bottleneck of the backbone checkpointed
+  (``models/resnet.py``).
 """
 
 import torch
 
+from ...models import convert
 from ...models.deeplab_v2 import DeepLabV2
 from ...models.pspnet import PSPNet
 from ...task_template import model_template
@@ -26,24 +38,16 @@ def add_parser_arguments(parser):
     parser.add_argument('--bf16', type=cmd.str2bool, default=True, metavar='',
                         help='sseg - bf16 autocast for the convolutions on '
                              'the card (float32 statistics and losses)')
-    # the JAX package's other model flags: they parse, and any value but
-    # the default is refused (UNPORTED_FLAGS)
     parser.add_argument('--freeze-bn', type=cmd.str2bool, default=False,
-                        metavar='', help='sseg - freeze BatchNorm statistics '
-                                         '(ROADMAP A3d)')
+                        metavar='', help='sseg - freeze BatchNorm statistics')
     parser.add_argument('--pretrained-path', type=str, default='',
-                        metavar='', help='sseg - pretrained backbone '
-                                         'checkpoint (ROADMAP A3d)')
+                        metavar='', help='sseg - a torch checkpoint: a '
+                                         'ResNet backbone or a full model '
+                                         '(see models/convert.py)')
     parser.add_argument('--remat', type=cmd.str2bool, default=False,
                         metavar='', help='sseg - recompute backbone '
                                          'activations in the backward pass '
-                                         '(ROADMAP A3d)')
-
-
-# (flag, its default, the ROADMAP item that ports it): any value but the
-# default is refused by the proxy
-UNPORTED_FLAGS = (('freeze_bn', False, 'A3d'), ('pretrained_path', '', 'A3d'),
-                  ('remat', False, 'A3d'))
+                                         '(less memory, a longer step)')
 
 
 def deeplabv2():
@@ -65,7 +69,22 @@ class _SsegModel(model_template.TaskModel):
         self.net = self.net_class(backbone=args.backbone,
                                   output_stride=args.output_stride,
                                   num_classes=args.num_classes,
-                                  bf16=getattr(args, 'bf16', True))
+                                  bf16=getattr(args, 'bf16', True),
+                                  remat=getattr(args, 'remat', False))
+        self.freeze_bn = bool(getattr(args, 'freeze_bn', False))
+        self.net.train(not self.freeze_bn)
+
+    def train(self, mode=True):
+        super(_SsegModel, self).train(mode)
+        if self.freeze_bn:
+            self.net.train(False)
+        return self
+
+    def load_pretrained(self, path):
+        state = convert.load_torch_state_dict(path)
+        if any(k.startswith(('backbone.', 'model.backbone.')) for k in state):
+            return self.full_converter(state, self.state_dict())[0]
+        return convert.load_pretrained_backbone(self, state)
 
     def forward(self, inp):
         if len(inp) != 1:
@@ -85,6 +104,7 @@ class DeepLabV2Model(_SsegModel):
 
     net_class = DeepLabV2
     lr_mult_spec = (('classifier', 10.0),)
+    full_converter = staticmethod(convert.convert_deeplab_v2)
 
 
 class PSPNetModel(_SsegModel):
@@ -92,3 +112,4 @@ class PSPNetModel(_SsegModel):
 
     net_class = PSPNet
     lr_mult_spec = (('psp', 10.0), ('decoder', 10.0))
+    full_converter = staticmethod(convert.convert_pspnet)

@@ -226,18 +226,13 @@ def test_proxy_and_harness_build_the_same_algorithm(tmp_path):
 
 
 # the JAX package's flags that the port parses and refuses at any value but
-# their default (the VOC data flags and datasets are ported: they left this
-# table with the refusals)
+# their default (the VOC data flags and datasets, the optimizer flags and
+# the sseg model flags are ported: they left this table with the refusals)
 UNPORTED = [
     ('steps_per_dispatch', 4, 'A4'), ('eager_ingest', True, 'A4'),
     ('spatial_val', True, 'A4'), ('spatial_train', 2, 'A4'),
     ('distributed', True, 'A4'), ('profile_dir', 'prof', 'A4'),
     ('profile_steps', 3, 'A4'), ('visualize', True, 'A2c'),
-    ('alpha', 0.99, 'A3c'), ('centered', True, 'A3c'), ('eps', 1e-8, 'A3c'),
-    ('beta1', 0.9, 'A3c'), ('beta2', 0.999, 'A3c'), ('amsgrad', True, 'A3c'),
-    ('clip_grad_norm', 5.0, 'A3c'), ('bf16_opt_state', True, 'A3c'),
-    ('freeze_bn', True, 'A3d'), ('pretrained_path', 'backbone.pth', 'A3d'),
-    ('remat', True, 'A3d'),
 ]
 
 
@@ -255,8 +250,8 @@ def test_unported_flags_and_datasets_stop(tmp_path, flag, value, item):
 
 def test_unported_flags_parse_at_their_defaults_without_a_warning(
         monkeypatch):
-    """Each refused flag, at the JAX package's default, parses (no
-    "Unknown argument" warning) and gives that default."""
+    """The optimizer and sseg model flags, once refused, parse at the JAX
+    package's defaults (no "Unknown argument" warning) and give them."""
     from pixelssl_tpu_torch.utils import cmd
 
     warnings = []
