@@ -125,7 +125,12 @@ Phases, each printing a line as it ends:
     labels equal on at least 97% of the pixels (the C++ nearest index is
     float32 arithmetic, PIL's double), and where the image is enlarged
     every pixel within one grey level (PIL's antialiased filter makes
-    shrunk images differ by design);
+    shrunk images differ by design); then the same run at
+    ``--steps-per-dispatch 4`` (one CUDA graph dispatch and a tail):
+    ``state.step`` 5, the blur kernel 6 times an iteration, the first
+    step's losses equal to the plain run's, and one replay from the run's
+    final state against eager steps as in phase 26 (``device_prep`` of the
+    uint8 batch inside the graph);
 22. VOC-C: the PSPNet 1-8 CCT script @513 (base 513) on the default path.
     Each VOC phase prints the iteration times and their loader waits
     (``data_time``) beside 3 bare ``train_step`` calls on a batch of the
@@ -160,9 +165,48 @@ Phases, each printing a line as it ends:
     statistics after them within atol 1e-4 and rtol 1e-4, step 2 printed
     beside a second plain run, whose spread there is about 1%; and
     ``--pretrained-path`` with a torch ResNet-101 checkpoint written from
-    ``--seed``, every backbone tensor copied.
+    ``--seed``, every backbone tensor copied;
+26. ``--steps-per-dispatch`` at full width (DeepLab-v2/ResNet-101 @321):
+    SupOnly 4+0, MT 4+4 (with input noise) and GCT 4+4 in float32 with
+    cuDNN deterministic, 9 steps from the same weights and batches, twice
+    eagerly and once through ``train_steps`` with n = 4 (two dispatches:
+    an eager step, the CUDA graph's capture and 3 replays, then 4
+    replays; a tail of one eager step): ``state.step`` 9, the blur kernel
+    6 times a GCT step on both paths, the first losses equal, every
+    step's lr equal, and after the runs every optimizer's update counts
+    and group lrs equal; the later loss gaps printed; one more step from
+    the graph run's state, replayed and eager twice, the replay within the
+    eager steps' own spread (``SPREAD_FACTOR``, ``GAP_FLOOR``); MT's
+    captured noise equal to the eager noise; the FD's and D's Adam
+    captured with a device lr and replayed, equal bit for bit to the same
+    Adam stepped eagerly; then all seven algorithms at their full-width
+    batches in bf16, three eager steps and two dispatches, each one's ms a
+    step eager and replayed and the device's busy share of both
+    (``torch.profiler``);
+27. ``--profile-dir`` on the 1-8 MT script at phase 10's config with
+    ``--steps-per-dispatch 4`` and ``--profile-steps 2``: 2 epochs of 17
+    iterations (4 dispatches and a tail), each validated and
+    checkpointed; one Chrome trace of dispatches 1 and 2, its kernel count
+    and the window's busy share; ``state.step`` 34; then one replay from
+    the run's final state against eager steps as in phase 26;
+28. ``--eager-ingest`` on the same script at 1 epoch of 5 iterations: run
+    plain, with it and plain again, then at ``--steps-per-dispatch 4``
+    without and with it; every batch equal bit for bit in all five, the
+    first step's losses equal, the later ones printed beside the two plain
+    runs' own gap; each graph run's ``state.step`` 5 and one replay from
+    its final state against eager steps as in phase 26;
+29. the port's bench (``python -m pixelssl_tpu_torch.bench``) at
+    ``--steps 8 --calls 3 --cudnn-benchmark``: its JSON line,
+    ``mfu_bf16`` in (0, 1];
+30. ``tools/infer_bench.py`` and ``tools/export_serving.py`` on
+    DeepLab-v2/ResNet-101 @321, batch 8: images/s, and the ``.pt2``
+    round trip within atol 5e-3, rtol 2e-2;
+31. ``scripts/rescore.py`` of the port on the fixture tree: a
+    reference-layout checkpoint written from the port's random weights,
+    rescored; its mIoU equal to the port's own validation of the same
+    weights (atol 1e-4), ``pretrained/<exp_id>.pth`` written.
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23 and 25 print their step
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25 and 26 print their step
 times and peak memory (the harness phases also the peak over the steps after the first, which
 leaves out cuDNN's autotuning of new shapes), and the run its total wall
 time and each phase's.
@@ -175,6 +219,7 @@ removes, and the augmentation library under the same directory.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -291,12 +336,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/25] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/31] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/25] host for the VOC input path: ' + '  '.join(
+    say('[1/31] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/25] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/31] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -344,11 +389,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/25] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/31] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/25] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/31] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -363,7 +408,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/25] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/31] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -393,7 +438,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/25] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/31] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -436,7 +481,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/25] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/31] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -531,9 +576,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/25]', 'GCT')
+    algo, batch = build_full_width(args, '[5/31]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/25]', 'GCT',
+        algo, batch, steps, '[5/31]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -597,7 +642,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/25] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/31] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -609,7 +654,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/25] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/31] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -662,16 +707,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/25]', 'MT')
+    algo, batch = build_full_width(args, '[7/31]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/25]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/31]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/25]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/31]', 'MT')
     return algo
 
 
@@ -679,8 +724,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/25]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/25]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/31]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/31]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -711,7 +756,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/25] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/31] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -739,7 +784,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/25] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/31] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -775,14 +820,15 @@ def script_blur_cases(script):
                           config['unlabeled_batch_size'], config['im_size'])
 
 
-def script_config(script, out, algo_name):
+def script_config(script, out, algo_name, samples=None):
     """The config of one of the port's experiment scripts with its data
     keys swapped: the synthetic dataset in place of PASCAL VOC, a
-    sublabeled file of synthetic names, ResNet-101 with random weights,
-    training from scratch, a few epochs and samples; the recipe's other
-    values as the script gives them."""
+    sublabeled file of synthetic names (every other one of ``samples``,
+    by default ``SCRIPT_SAMPLES``'), ResNet-101 with random weights,
+    training from scratch, a few epochs; the recipe's other values as the
+    script gives them."""
     config = load_script_config(script)
-    n = SCRIPT_SAMPLES[algo_name]
+    n = samples or SCRIPT_SAMPLES[algo_name]
     sub_path = os.path.join(out, 'sublabeled.txt')
     with open(sub_path, 'w') as f:
         for i in range(0, n, 2):
@@ -842,9 +888,13 @@ def run_script_phase(tag, script, algo_name, out, config=None):
     records = read_records(config)
     train = [r for r in records if r['phase'] == 'train']
     iters = len(proxy.train_loader)
-    if len(train) != iters * config['epochs']:
+    # a record an iteration; with --steps-per-dispatch n, one a dispatch
+    # and one for each iteration of the tail
+    n = int(config.get('steps_per_dispatch', 1))
+    per_epoch = iters if n == 1 else iters // n + iters % n
+    if len(train) != per_epoch * config['epochs']:
         raise AssertionError('{0} train records, expected {1}'.format(
-            len(train), iters * config['epochs']))
+            len(train), per_epoch * config['epochs']))
     for r in train:
         losses = {k: v for k, v in r.items() if k.endswith('_loss')}
         if not all(math.isfinite(v) for v in losses.values()):
@@ -901,7 +951,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/25]'
+    tag = '[10/31]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -971,11 +1021,73 @@ def no_workers_left(tag):
             tag, children))
 
 
+def loss_values(metrics):
+    return {k: float(v) for k, v in metrics.items() if k.endswith('_loss')}
+
+
+@contextlib.contextmanager
+def watched_steps():
+    """``SSLBase.train_step`` and ``train_steps`` watched while the block
+    runs: yields {'sums': each batch a step takes, in order
+    (``batch_sums``), 'eager': the losses of each eager ``train_step``
+    (every step of a plain run; the first of a graph run and its tail)}.
+    Each adds a sync: untimed runs only."""
+    from pixelssl_tpu_torch.ssl_algorithm import ssl_base
+
+    seen = {'sums': [], 'eager': []}
+    one, many = ssl_base.SSLBase.train_step, ssl_base.SSLBase.train_steps
+    inside = []
+
+    def train_step(self, batch):
+        if not inside:
+            seen['sums'].append(batch_sums(batch))
+        metrics = one(self, batch)
+        seen['eager'].append(loss_values(metrics))
+        return metrics
+
+    def train_steps(self, batches, history=None):
+        batches = list(batches)
+        seen['sums'].extend(batch_sums(b) for b in batches)
+        inside.append(True)
+        try:
+            return many(self, batches, history)
+        finally:
+            inside.pop()
+
+    ssl_base.SSLBase.train_step = train_step
+    ssl_base.SSLBase.train_steps = train_steps
+    try:
+        yield seen
+    finally:
+        ssl_base.SSLBase.train_step = one
+        ssl_base.SSLBase.train_steps = many
+
+
+def script_graph_checks(tag, what, proxy, epochs, blur_per_step, launches):
+    """A script's run at ``--steps-per-dispatch`` ``MULTI_N``: the algorithm
+    captured its step, ``state.step`` counts every iteration, the blur
+    kernel ran ``blur_per_step`` times each; then one replay from the
+    run's final state against eager steps (``check_one_step``) on a batch
+    of the run's loader."""
+    algo = proxy.ssl_algorithm
+    steps = len(proxy.train_loader) * epochs
+    if algo.steps_per_dispatch != MULTI_N or algo._captured is None:
+        raise AssertionError('{0}: no captured step at --steps-per-dispatch '
+                             '{1}'.format(what, algo.steps_per_dispatch))
+    if algo.state.step != steps or launches != blur_per_step * steps:
+        raise AssertionError('{0}: state.step {1}, blur launches {2}; '
+                             'expected {3}, {4}'.format(
+                                 what, algo.state.step, launches, steps,
+                                 blur_per_step * steps))
+    check_one_step(tag, what, algo, next(iter(proxy.train_loader)),
+                   blur_per_step)
+
+
 def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/25]'
+    tag = '[11/31]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1098,7 +1210,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/25]', what, args, seed, steps)
+        small_card_vs_cpu('[12/31]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1164,7 +1276,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/25] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/31] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1183,9 +1295,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/25]', what)
+        algo, batch = build_full_width(args, '[13/31]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/25]', what, positive)
+            algo, batch, steps, '[13/31]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1199,7 +1311,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/25] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/31] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1208,7 +1320,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/25]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/31]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1299,7 +1411,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/25]', algo, full_width_args(
+                '[14/31]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1311,7 +1423,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/25]'
+    tag = '[15/31]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1356,7 +1468,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/25]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/31]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1396,7 +1508,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/25] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/31] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1419,15 +1531,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/25]', what)
+        algo, batch = build_full_width(args, '[17/31]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/25] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/31] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/25]', what, positive)
+            algo, batch, steps, '[17/31]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1436,7 +1548,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/25] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/31] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1445,7 +1557,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/25]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/31]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1459,7 +1571,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/25]', algos['ssl_cct'], full_width_args(
+            '[18/31]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1471,7 +1583,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/25]'
+    tag = '[19/31]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1582,12 +1694,14 @@ def native_against_default(train_set, args, tag):
                              'path beyond its bound')
 
 
-def phase_voc(tag, script, algo_name, launches_per_iter, **flags):
+def phase_voc(tag, script, algo_name, launches_per_iter, multi=False,
+              **flags):
     """One VOC phase: the script through ``run_script`` on the fixture
     tree with ``flags``, validation on the 4 val images; then 3 bare
-    ``train_step`` calls on a batch of the run and the loader alone.
+    ``train_step`` calls on a batch of the run and the loader alone; with
+    ``multi``, the run again at ``--steps-per-dispatch`` (``voc_multi``).
     cuDNN's autotuning is off, as a user runs the script. Returns the blur
-    launches."""
+    launches of the first run."""
     import statistics
     import tempfile
 
@@ -1621,11 +1735,42 @@ def phase_voc(tag, script, algo_name, launches_per_iter, **flags):
                     config['num_workers'], decode_ms))
             if flags.get('native_augment'):
                 native_against_default(train_set, proxy.args, tag)
-            del proxy
+            del proxy, train_set
         no_workers_left(tag)
+        if multi:
+            voc_multi(tag, script, algo_name, launches_per_iter, records,
+                      flags)
+            no_workers_left(tag)
     finally:
         torch.backends.cudnn.benchmark = True
     return launches
+
+
+def voc_multi(tag, script, algo_name, launches_per_iter, plain_records,
+              flags):
+    """The VOC run of ``flags`` again at ``--steps-per-dispatch``
+    ``MULTI_N``: its first step's losses equal to the plain run's first
+    iteration, and ``script_graph_checks``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as out:
+        config = voc_config(script, out, steps_per_dispatch=MULTI_N, **flags)
+        with watched_steps() as seen:
+            _, proxy, records, launches = run_script_phase(
+                tag, script, algo_name, out, config)
+        plain = loss_values([r for r in plain_records
+                             if r['phase'] == 'train'][0])
+        say('{0} --steps-per-dispatch {1}: first step\'s losses {2}, the '
+            'plain run\'s {3}; dispatch records: {4}'.format(
+                tag, MULTI_N, seen['eager'][0], plain, [
+                    loss_values(r) for r in records
+                    if r['phase'] == 'train']))
+        if seen['eager'][0] != plain:
+            raise AssertionError('the first step\'s losses differ from the '
+                                 'plain run\'s')
+        script_graph_checks(tag, algo_name + ' at --steps-per-dispatch',
+                            proxy, 1, launches_per_iter, launches)
+        del proxy
 
 
 # the sreg phase (23): the port's demo script, each algorithm that
@@ -1729,7 +1874,7 @@ def phase_sreg():
     from pixelssl_tpu_torch.tasks import sreg
     from pixelssl_tpu_torch.utils import logger
 
-    tag = '[23/25]'
+    tag = '[23/31]'
     demo = load_sreg_demo()
     gct_launches = None
     for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
@@ -1827,7 +1972,7 @@ def phase_optimizers(seed, steps):
     import torch
     from pixelssl_tpu_torch import harness
 
-    tag = '[24/25]'
+    tag = '[24/31]'
     for name, flags in OPTIMIZER_CASES:
         args = harness.default_args('ssl_mt', **dict(
             MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
@@ -1927,7 +2072,7 @@ def f32_steps(seed, steps, **flags):
                                unlabeled_batch_size=4,
                                **dict(MT_CONFIG, bf16=False, **flags))
         algo, batch = build_full_width(
-            args, '[25/25]', 'MT float32 ' + (' '.join(sorted(flags)) or
+            args, '[25/31]', 'MT float32 ' + (' '.join(sorted(flags)) or
                                               'plain'))
         losses, stats = [], None
         for s in range(steps):
@@ -1961,7 +2106,7 @@ def phase_sseg_flags(seed, steps):
     import torch
     from pixelssl_tpu_torch.models.resnet import resnet101
 
-    tag = '[25/25]'
+    tag = '[25/31]'
     runs = {}
     for label, flags in (('plain', {}), ('remat', dict(remat=True)),
                          ('bf16_opt_state', dict(bf16_opt_state=True)),
@@ -2083,6 +2228,716 @@ def phase_sseg_flags(seed, steps):
     torch.cuda.empty_cache()
 
 
+# phase 26: the multi-step path (--steps-per-dispatch) at full width
+MULTI_N = 4        # steps a dispatch
+MULTI_BATCHES = 9  # two dispatches and a tail of one
+# a graph step's gaps to an eager step may be at most this many times an
+# eager step's to another from the same state, or the floor below: the
+# card's own spread, measured in the phase (the bilinear resize's
+# backward adds with atomics, so no two steps update alike)
+SPREAD_FACTOR = 2.0
+GAP_FLOOR = 1e-5
+MULTI_EQUAL = (
+    ('ssl_null', 'SupOnly', NULL_CONFIG, (4, 0), ('task_loss',)),
+    ('ssl_mt', 'MT', dict(MT_CONFIG, gaussian_noise_std=0.1), (8, 4),
+     ('s_task_loss', 't_task_loss')),
+    ('ssl_gct', 'GCT', GCT_CONFIG, (8, 4),
+     ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss')),
+)
+MULTI_TIMED = (
+    ('ssl_null', 'SupOnly', NULL_CONFIG, 'deeplabv2', (4, 0)),
+    ('ssl_mt', 'MT', MT_CONFIG, 'deeplabv2', (8, 4)),
+    ('ssl_gct', 'GCT', GCT_CONFIG, 'deeplabv2', (8, 4)),
+    ('ssl_adv', 'AdvSSL', ADV_CONFIG, 'deeplabv2', (8, 4)),
+    ('ssl_s4l', 'S4L', S4L_CONFIG, 'deeplabv2', (8, 4)),
+    ('ssl_cutmix', 'CutMix', CUTMIX_CONFIG, 'pspnet', (6, 4)),
+    ('ssl_cct', 'CCT', CCT_CONFIG, 'pspnet', (4, 2)),
+)
+
+
+def multi_batches(args, seed, n):
+    from pixelssl_tpu_torch import harness
+    return [harness.synthetic_batch(args, seed=seed + i) for i in range(n)]
+
+
+def optimizer_counters(algo):
+    """Each optimizer's update counts and group lrs, as numbers."""
+    return {key: ([float(st['step']) for st in opt.state.values() if st],
+                  [float(g['lr']) for g in opt.param_groups])
+            for key, opt in algo.optimizers.items()}
+
+
+def eager_run(algo, batches):
+    """One ``train_step`` a batch; each step's metrics and ms (CUDA
+    events)."""
+    import torch
+    rows, times = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = algo.train_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        rows.append({k: float(v) for k, v in metrics.items()})
+    return rows, times
+
+
+def graph_run(algo, batches, n):
+    """``batches`` as ``_train_multi`` takes them: ``train_steps`` on each
+    n of them, the tail one ``train_step`` at a time; {step index: metrics}
+    at every step (``history``), and each dispatch's ms."""
+    import torch
+    from pixelssl_tpu_torch.nn.loader import chunked
+    history, times = [], []
+    for kind, payload in chunked(batches, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if kind == 'chunk':
+            algo.train_steps(payload, history)
+        else:
+            history.append(algo.train_step(payload))
+        end.record()
+        torch.cuda.synchronize()
+        times.append((kind, start.elapsed_time(end)))
+    rows = {s: {k: float(v) for k, v in m.items()}
+            for s, m in enumerate(history)}
+    return rows, times
+
+
+def update_gap(before, a, b):
+    """How far two updates of the same parameters part: ``|a - b|`` over
+    ``|a - before|``, L2 norms over all parameters."""
+    num = sum(float((a[k] - b[k]).double().square().sum()) for k in a)
+    den = sum(float((a[k] - before[k]).double().square().sum()) for k in a)
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
+
+
+def float_params(algo):
+    return {'{0}.{1}'.format(key, name): p.detach().float().clone()
+            for key, m in algo.modules.items()
+            for name, p in m.named_parameters()}
+
+
+def busy_share(fn, wall_ms=None):
+    """Kernel time of ``fn()`` under ``torch.profiler`` over ``wall_ms``
+    (by default ``fn``'s own time between CUDA events); (kernel ms,
+    launches, share), or None if the profiler saw no device time."""
+    import torch
+    timed = {}
+
+    def timed_fn():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        timed['ms'] = start.elapsed_time(end)
+
+    events = profile_kernels(timed_fn)
+    total_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events or total_ms <= 0:
+        return None
+    wall = timed['ms'] if wall_ms is None else wall_ms
+    return total_ms, sum(e.count for e in events), total_ms / wall
+
+
+def generator_draws_match(algo):
+    """The captured step's generator against ``_step_rng``'s: a graph of
+    MT's input noise, replayed after seeding its registered generator as
+    ``CapturedStep.run`` does, draws what the eager noise of the same step
+    draws, bit for bit."""
+    import torch
+    from pixelssl_tpu_torch.nn.module.gaussian_noise import gaussian_noise
+
+    x = torch.randn((2, 3, 64, 64), device='cuda')
+    generator = torch.Generator(device='cuda')
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = gaussian_noise(x, 0.1, generator)
+    worst = 0.0
+    for step in (0, 1, 7):
+        for salt in (0, 1):
+            generator.manual_seed(algo._step_seed(step, salt))
+            graph.replay()
+            eager = gaussian_noise(x, 0.1, torch.Generator(
+                device='cuda').manual_seed(algo._step_seed(step, salt)))
+            worst = max(worst, float((out - eager).abs().max()))
+    return worst
+
+
+def adam_graph_gap(steps=5):
+    """The FD's and D's Adam (``nn.optimizer.Adam``, torch's capturable
+    step on the card) stepped eagerly with a Python lr, against the same
+    Adam's step captured into a CUDA graph with the lr a ``StepScalars``
+    slot, replayed after an eager first step: the largest difference of
+    the parameters, moments and update counts after ``steps`` steps of
+    the same gradients and poly lrs (0 is equal bit for bit)."""
+    import torch
+    from pixelssl_tpu_torch.nn.optimizer import Adam
+    from pixelssl_tpu_torch.ssl_algorithm.ssl_base import StepScalars
+
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    shapes = ((64, 128, 4, 4), (64,), (1, 64, 4, 4), (1,))
+    init = [torch.randn(s, device='cuda', generator=gen) for s in shapes]
+    grads = [[torch.randn(s, device='cuda', generator=gen) for s in shapes]
+             for _ in range(steps)]
+    lrs = [1e-4 * (1 - k / 10.0) ** 0.9 for k in range(steps)]
+
+    def make():
+        params = [torch.nn.Parameter(t.clone()) for t in init]
+        return params, Adam(params, lr=lrs[0], betas=(0.9, 0.99), eps=1e-8)
+
+    eager, eager_opt = make()
+    for k in range(steps):
+        for p, g in zip(eager, grads[k]):
+            p.grad = g.clone()
+        eager_opt.param_groups[0]['lr'] = lrs[k]
+        eager_opt.step()
+
+    params, opt = make()
+    static = [torch.zeros_like(t) for t in init]
+    for p, g in zip(params, static):
+        p.grad = g
+    torch._foreach_copy_(static, grads[0])
+    opt.step()
+    scalars = StepScalars('cuda')
+    at = [1]
+    scalars.begin()
+    opt.param_groups[0]['lr'] = scalars.get(lambda: lrs[at[0]])
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.graph(graph):
+            opt.step()
+    finally:
+        fns = scalars.end()
+    for k in range(1, steps):
+        at[0] = k
+        torch._foreach_copy_(static, grads[k])
+        scalars.refill(fns)
+        graph.replay()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for p, q in zip(eager, params):
+        a, b = eager_opt.state[p], opt.state[q]
+        for x, y in ((p, q), (a['exp_avg'], b['exp_avg']),
+                     (a['exp_avg_sq'], b['exp_avg_sq']),
+                     (a['step'], b['step'])):
+            worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def phase_multi_step(seed):
+    """``--steps-per-dispatch`` at full width (DeepLab-v2/ResNet-101
+    @321): SupOnly 4+0, MT 8+4 (with input noise: the per-step generators)
+    and GCT 8+4 in float32 with cuDNN deterministic and no autotuning.
+    Nine steps from the same weights and batches, twice eagerly and once
+    through ``train_steps`` (n = 4: two dispatches, the first an eager
+    step, the capture and 3 replays, then a tail of one eager step):
+    ``state.step`` 9 and the blur count 6 a GCT step on every run, every
+    loss finite, the first step's losses equal (both eager from the same
+    state), the later gaps printed beside the eager runs' own: from random
+    weights one step's atomic sums grow into percents within a few steps
+    (on an NVIDIA H100 80GB HBM3), so the runs are held one step at a
+    time. One
+    step from the state the graph run ended in, replayed and eager twice:
+    the replay's losses and parameter update within ``SPREAD_FACTOR`` of
+    the two eager steps' own gap (or ``GAP_FLOOR``), its lr equal; and
+    MT's captured noise equal to the eager noise of the same steps; the
+    FD's and D's Adam captured against eager (``adam_graph_gap``), equal
+    bit for bit. Then all seven algorithms at their full-width batches
+    in bf16 (``MULTI_TIMED``): three eager steps and two dispatches, every
+    loss finite, each one's ms a step eager and replayed and the device's
+    busy share of both (``torch.profiler``). Returns the blur launches of
+    GCT's graph run."""
+    import torch
+    from pixelssl_tpu_torch.bench import restore, snapshot
+    from pixelssl_tpu_torch.ops import blur
+
+    tag = '[26/31]'
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for algo_name, what, config, (bs, ubs), positive in MULTI_EQUAL:
+            args = full_width_args(algo_name, seed, batch_size=bs,
+                                   unlabeled_batch_size=ubs,
+                                   **dict(config, bf16=False))
+            algo, _ = build_full_width(args, tag, what + ' float32')
+            batches = multi_batches(args, seed, MULTI_BATCHES + 1)
+            snap = snapshot(algo)
+            before = float_params(algo)
+            runs = {}
+            for label in ('eager_a', 'eager_b', 'graph'):
+                restore(algo, snap, 0)
+                blur.launches = 0
+                if label == 'graph':
+                    rows, times = graph_run(algo, batches[:MULTI_BATCHES],
+                                            MULTI_N)
+                else:
+                    rows, times = eager_run(algo, batches[:MULTI_BATCHES])
+                    rows = dict(enumerate(rows))
+                runs[label] = dict(rows=rows, times=times,
+                                   params=float_params(algo),
+                                   launches=blur.launches,
+                                   step=algo.state.step,
+                                   counters=optimizer_counters(algo))
+            per_step = (BLUR_LAUNCHES_PER_STEP if algo_name == 'ssl_gct'
+                        else 0)
+            check_multi(tag, what, runs, before, positive, per_step)
+            if algo_name == 'ssl_gct':
+                graph_launches = runs['graph']['launches']
+            check_one_step(tag, what + ' float32', algo,
+                           batches[MULTI_BATCHES], per_step)
+            if algo_name == 'ssl_mt':
+                worst = generator_draws_match(algo)
+                say('{0} MT input noise from the graph\'s registered '
+                    'generator against _step_rng\'s, steps 0/1/7, salts '
+                    '0/1: largest difference {1:g}'.format(tag, worst))
+                if worst != 0.0:
+                    raise AssertionError('captured draws differ by '
+                                         '{0}'.format(worst))
+            del algo
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+    worst = adam_graph_gap()
+    say('{0} the FD\'s and D\'s Adam, 5 steps eager against an eager step '
+        'and 4 replays of its captured step (lr from StepScalars): '
+        'parameters, moments and counts apart by at most {1:g}'.format(
+            tag, worst))
+    if worst != 0.0:
+        raise AssertionError('the captured Adam step differs by {0}'.format(
+            worst))
+
+    table = []
+    for algo_name, what, config, model, (bs, ubs) in MULTI_TIMED:
+        args = full_width_args(algo_name, seed, model=model, batch_size=bs,
+                               unlabeled_batch_size=ubs, **config)
+        algo, _ = build_full_width(args, tag, what)
+        batches = multi_batches(args, seed, 2 * MULTI_N + 3)
+        blur.launches = 0
+        rows, eager_times = eager_run(algo, batches[:3])
+        graph_rows, graph_times = graph_run(algo, batches[3:], MULTI_N)
+        for row in rows + list(graph_rows.values()):
+            bad = [k for k, v in row.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError('{0}: non-finite {1}'.format(what, bad))
+        steps = 3 + 2 * MULTI_N
+        if algo.state.step != steps:
+            raise AssertionError('{0}: state.step {1}'.format(
+                what, algo.state.step))
+        per_step = BLUR_LAUNCHES_PER_STEP if algo_name == 'ssl_gct' else 0
+        if blur.launches != per_step * steps:
+            raise AssertionError('{0}: blur launches {1}, expected '
+                                 '{2}'.format(what, blur.launches,
+                                              per_step * steps))
+        say('{0} {1} bf16: 3 eager steps then 2 dispatches of {2}, '
+            'state.step {3}, blur launches {4}; last metrics {5}'.format(
+                tag, what, MULTI_N, algo.state.step, blur.launches,
+                '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(
+                    graph_rows[len(graph_rows) - 1].items()))))
+        runs = {'eager_a': dict(times=eager_times),
+                'graph': dict(times=graph_times)}
+        table.append(time_both(tag, what + ' bf16', algo, batches, runs))
+        del algo
+        torch.cuda.empty_cache()
+    say('{0} ms a step, eager (median after the first) / replayed (the '
+        'second dispatch over its {1} steps), and the device\'s busy share '
+        'of each (torch.profiler): {2}'.format(tag, MULTI_N, '; '.join(
+            table)))
+    return graph_launches
+
+
+def check_multi(tag, what, runs, before, positive, blur_per_step):
+    """The 9-step runs of ``phase_multi_step``."""
+    a, b, g = runs['eager_a'], runs['eager_b'], runs['graph']
+    for label, run in runs.items():
+        if run['step'] != MULTI_BATCHES:
+            raise AssertionError('{0} {1}: state.step {2}'.format(
+                what, label, run['step']))
+        if run['launches'] != blur_per_step * MULTI_BATCHES:
+            raise AssertionError('{0} {1}: blur launches {2}, expected '
+                                 '{3}'.format(what, label, run['launches'],
+                                              blur_per_step * MULTI_BATCHES))
+        for step, row in run['rows'].items():
+            for key, value in row.items():
+                if not math.isfinite(value) or (
+                        key in positive and not value > 0):
+                    raise AssertionError('{0} {1} step {2}: {3} = {4}'.format(
+                        what, label, step, key, value))
+    lrs = [(a['rows'][step]['lr'], g['rows'][step]['lr'])
+           for step in range(MULTI_BATCHES)]
+    if any(x != y for x, y in lrs):
+        raise AssertionError('{0}: lr by step, eager / graph: {1}'.format(
+            what, lrs))
+    for key, (counts, group_lrs) in a['counters'].items():
+        if (counts, group_lrs) != g['counters'][key]:
+            raise AssertionError(
+                '{0}: optimizer {1} after the runs, eager counts {2} and '
+                'lrs {3}, graph {4}'.format(what, key, sorted(set(counts)),
+                                            group_lrs, g['counters'][key]))
+    lines = []
+    for step in range(MULTI_BATCHES):
+        gap_g = largest_loss_gap([a['rows'][step]], [g['rows'][step]])
+        gap_b = largest_loss_gap([a['rows'][step]], [b['rows'][step]])
+        lines.append('{0:.3g} ({1:.3g})'.format(gap_g, gap_b))
+        if step == 0 and (gap_g or gap_b):
+            raise AssertionError('{0}: the first step\'s losses differ: '
+                                 '{1:.3g} / {2:.3g}'.format(what, gap_g,
+                                                            gap_b))
+    say('{0} {1} float32, 9 steps, state.step 9 and blur launches {2} / '
+        '{3} / {4} (eager, eager, graph); every step\'s lr, and the '
+        'optimizers\' update counts and group lrs after the runs, equal '
+        '({8}); relative loss gap to the first eager run by step, graph '
+        '(second eager run): {5}; update after 9 steps apart by {6:.3g} '
+        '({7:.3g})'.format(
+            tag, what, a['launches'], b['launches'], g['launches'],
+            ', '.join(lines), update_gap(before, a['params'], g['params']),
+            update_gap(before, a['params'], b['params']),
+            ', '.join('{0} counts {1}'.format(k, sorted(set(c)))
+                      for k, (c, _) in sorted(a['counters'].items()))))
+
+
+def check_one_step(tag, what, algo, batch, blur_per_step):
+    """One step from the state the graph run ended in: a replay, and an
+    eager step twice, each from that state; the replay's losses and
+    parameter update against the first eager step's, within the two
+    eager steps' own gap."""
+    import torch
+    from pixelssl_tpu_torch.bench import restore, snapshot
+    from pixelssl_tpu_torch.ops import blur
+
+    snap = snapshot(algo)
+    step = algo.state.step
+    before = float_params(algo)
+    out = {}
+    for label in ('graph', 'eager_a', 'eager_b'):
+        restore(algo, snap, step)
+        blur.launches = 0
+        if label == 'graph':
+            metrics = algo.train_steps([batch])
+        else:
+            metrics = algo.train_step(batch)
+        torch.cuda.synchronize()
+        out[label] = dict(losses={k: float(v) for k, v in metrics.items()},
+                          params=float_params(algo), launches=blur.launches)
+        if algo.state.step != step + 1 or blur.launches != blur_per_step:
+            raise AssertionError('{0} {1}: step {2}, blur launches {3}'
+                                 .format(what, label, algo.state.step,
+                                         blur.launches))
+    a, b, g = out['eager_a'], out['eager_b'], out['graph']
+    loss_g = largest_loss_gap([a['losses']], [g['losses']])
+    loss_b = largest_loss_gap([a['losses']], [b['losses']])
+    lr_equal = a['losses']['lr'] == g['losses']['lr']
+    upd_g = update_gap(before, a['params'], g['params'])
+    upd_b = update_gap(before, a['params'], b['params'])
+    say('{0} {1}, one step from the state at step {2}, replayed '
+        'against eager (a second eager step against the first): losses '
+        'apart by {3:.3g} ({4:.3g}), updates by {5:.3g} ({6:.3g}); lr '
+        'equal: {7}'.format(tag, what, step, loss_g, loss_b, upd_g, upd_b,
+                            lr_equal))
+    if not lr_equal or not loss_g <= max(SPREAD_FACTOR * loss_b,
+                                         GAP_FLOOR) or \
+            not upd_g <= max(SPREAD_FACTOR * upd_b, GAP_FLOOR):
+        raise AssertionError('{0}: the replayed step parts from the eager '
+                             'one beyond their own spread'.format(what))
+
+
+def time_both(tag, what, algo, batches, runs):
+    """'what eager ms / replayed ms (busy share eager / replayed)' from
+    the runs' times, one profiled eager step (its kernel time over the
+    median eager step) and one profiled replay (over its own time)."""
+    import statistics
+
+    eager_ms = statistics.median(runs['eager_a']['times'][1:])
+    chunk_ms = [t for kind, t in runs['graph']['times'] if kind == 'chunk']
+    replay_ms = chunk_ms[1] / MULTI_N
+    eager_busy = busy_share(lambda: algo.train_step(batches[0]), eager_ms)
+    graph_busy = busy_share(lambda: algo.train_steps(batches[:1]))
+
+    def fmt(busy):
+        return 'no device time seen' if busy is None else \
+            '{0:.1f}% ({1:.2f} ms in {2} launches)'.format(
+                100.0 * busy[2], busy[0], busy[1])
+    say('{0} {1}: {2:.2f} ms a step eager, {3:.2f} replayed ({4:.2f}x); '
+        'busy eager {5}, replayed {6}'.format(
+            tag, what, eager_ms, replay_ms, eager_ms / replay_ms,
+            fmt(eager_busy), fmt(graph_busy)))
+    return '{0} {1:.2f} / {2:.2f} ({3} / {4})'.format(
+        what, eager_ms, replay_ms,
+        '-' if eager_busy is None else '{0:.0f}%'.format(100 * eager_busy[2]),
+        '-' if graph_busy is None else '{0:.0f}%'.format(100 * graph_busy[2]))
+
+
+def trace_kernels(path):
+    """(kernel launches, their summed ms, the span of the profiled steps
+    in ms) of a Chrome trace of ``utils.profiler``."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    steps = [e for e in events
+             if e.get('name', '').startswith('ProfilerStep#') and 'dur' in e]
+    span_us = (max(e['ts'] + e['dur'] for e in steps) -
+               min(e['ts'] for e in steps)) if steps else 0.0
+    return (len(kernels), sum(e.get('dur', 0) for e in kernels) / 1e3,
+            span_us / 1e3, len({e['name'] for e in steps}))
+
+
+# phase 27: 17 iterations an epoch at 2+2 (34 labeled samples of 68): 4
+# dispatches of MULTI_N and a tail of one; the window holds dispatches 1-2
+PROFILE_SAMPLES = 68
+PROFILE_DISPATCHES = 2
+
+
+def phase_profile_dir():
+    """``--profile-dir`` on the 1-8 MT script at the phase-10 config (2+2
+    @321, synthetic data) with ``--steps-per-dispatch`` ``MULTI_N``: 2
+    epochs of 17 iterations, each validated and checkpointed,
+    ``--profile-steps`` ``PROFILE_DISPATCHES``: one Chrome trace with the
+    window's dispatches; its kernel count, their device time and the busy
+    share of the window; then ``script_graph_checks``."""
+    import glob
+    import tempfile
+
+    tag = '[27/31]'
+    with tempfile.TemporaryDirectory() as out:
+        prof_dir = os.path.join(out, 'prof')
+        config = script_config(SCRIPT_MT, out, 'ssl_mt', PROFILE_SAMPLES)
+        config.update(epochs=2, profile_dir=prof_dir,
+                      profile_steps=PROFILE_DISPATCHES,
+                      steps_per_dispatch=MULTI_N)
+        _, proxy, _, launches = run_script_phase(tag, SCRIPT_MT, 'ssl_mt',
+                                                 out, config)
+        ckpts = sorted(os.listdir(proxy.args.checkpoint_path))
+        script_graph_checks(tag, 'MT script', proxy, 2, 0, launches)
+        del proxy
+        traces = glob.glob(os.path.join(prof_dir, '*.json'))
+        if len(traces) != 1:
+            raise AssertionError('{0} traces in {1}'.format(len(traces),
+                                                            prof_dir))
+        n, kernel_ms, span_ms, steps = trace_kernels(traces[0])
+        size_mib = os.path.getsize(traces[0]) / 2 ** 20
+    say('{0} --profile-dir at --steps-per-dispatch {1}: one trace of {2:.1f} '
+        'MiB, {3} profiled dispatches, {4} kernel launches, {5:.2f} ms of '
+        'device time in a {6:.2f} ms window: busy {7:.1f}%; checkpoints '
+        '{8}'.format(tag, MULTI_N, size_mib, steps, n, kernel_ms, span_ms,
+                     100.0 * kernel_ms / max(span_ms, 1e-9), ckpts))
+    if steps != PROFILE_DISPATCHES or n == 0:
+        raise AssertionError('the trace holds {0} dispatches and {1} kernels'
+                             .format(steps, n))
+    if ckpts != ['checkpoint_1.pth', 'checkpoint_2.pth']:
+        raise AssertionError('checkpoints {0}'.format(ckpts))
+    no_workers_left(tag)
+
+
+def batch_sums(batch):
+    """One float64 sum a tensor of a batch (a sync: untimed phases only)."""
+    return tuple(float(t.double().sum()) for key in ('inp', 'gt')
+                 for t in batch[key])
+
+
+INGEST_RUNS = (('plain', False, 1), ('eager', True, 1), ('plain2', False, 1),
+               ('graph', False, MULTI_N), ('graph_eager', True, MULTI_N))
+
+
+def phase_eager_ingest():
+    """The phase-10 script config, 1 epoch of 5 iterations, run five times
+    (``INGEST_RUNS``): plain, with ``--eager-ingest``, plain again, then at
+    ``--steps-per-dispatch`` ``MULTI_N`` (a dispatch and a tail) without
+    and with it. Every batch a step takes is the same in all five (its
+    sums, bit for bit), and so are the first step's losses; the later
+    losses are printed beside the two plain runs' own gap, not held: the
+    bilinear resize's backward adds with atomics, so two plain runs part
+    after the first update and grow apart by percents on an NVIDIA H100
+    80GB HBM3. Each graph run passes ``script_graph_checks``."""
+    import tempfile
+
+    tag = '[28/31]'
+    runs = {}
+    for label, eager, n in INGEST_RUNS:
+        with tempfile.TemporaryDirectory() as out:
+            config = script_config(SCRIPT_MT, out, 'ssl_mt')
+            config.update(epochs=1, eager_ingest=eager, steps_per_dispatch=n)
+            with watched_steps() as seen:
+                _, proxy, records, launches = run_script_phase(
+                    tag, SCRIPT_MT, 'ssl_mt', out, config)
+            if proxy.train_loader.eager_ingest != eager:
+                raise AssertionError('eager_ingest not wired')
+            if n > 1:
+                script_graph_checks(tag, 'MT script, ' + label, proxy, 1, 0,
+                                    launches)
+            del proxy
+        runs[label] = dict(sums=seen['sums'], first=seen['eager'][0],
+                           losses={r['iter']: loss_values(r)
+                                   for r in records if r['phase'] == 'train'})
+    plain = runs['plain']
+    for label, run in runs.items():
+        if run['sums'] != plain['sums']:
+            raise AssertionError('{0}: the batches differ'.format(label))
+        if run['first'] != plain['first']:
+            raise AssertionError('{0}: first losses {1}, plain {2}'.format(
+                label, run['first'], plain['first']))
+    gaps = {label: ', '.join('{0} {1:.3g}'.format(it, largest_loss_gap(
+        [plain['losses'][it]], [losses])) for it, losses in sorted(
+            run['losses'].items())) for label, run in runs.items()
+        if label != 'plain'}
+    say('{0} {1} batches equal bit for bit in all {2} runs, the first step\'s '
+        'losses equal; relative loss gap to the plain run by iteration: '
+        '{3}'.format(tag, len(plain['sums']), len(runs), '; '.join(
+            '{0}: {1}'.format(k, v) for k, v in gaps.items())))
+    no_workers_left(tag)
+
+
+def phase_bench():
+    """The port's bench at a reduced count (``--steps 8 --calls 3``), in
+    this process, whose cuDNN autotunes: its JSON line parses and holds
+    ``mfu_bf16`` in (0, 1]."""
+    import io
+
+    from pixelssl_tpu_torch import bench
+
+    tag = '[29/31]'
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(['--steps', '8', '--calls', '3', '--cudnn-benchmark'])
+    line = out.getvalue().strip().splitlines()[-1]
+    record = json.loads(line)
+    say('{0} bench (--steps 8 --calls 3): {1}'.format(tag, line))
+    mfu = record.get('mfu_bf16')
+    if mfu is None or not 0.0 < mfu <= 1.0:
+        raise AssertionError('mfu_bf16 {0}'.format(mfu))
+    for key in ('samples_per_sec_per_chip', 'eager_samples_per_sec_per_chip',
+                'gct_steps_per_sec_per_chip', 'tflop_per_step', 'peak_gib'):
+        if not record[key] > 0:
+            raise AssertionError('{0} = {1}'.format(key, record[key]))
+    return record
+
+
+def phase_serving():
+    """``tools/infer_bench.py`` and ``tools/export_serving.py`` on
+    DeepLab-v2/ResNet-101 @321, batch 8, in this process: the inference
+    bench's JSON line, and the exported program's round trip within the
+    tool's limits (atol 5e-3, rtol 2e-2), its file in a temporary
+    directory."""
+    import argparse as _argparse
+    import io
+    import tempfile
+
+    from pixelssl_tpu_torch.tools import export_serving, infer_bench
+
+    tag = '[30/31]'
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        infer_bench.main(['--model', 'deeplabv2', '--backbone', 'resnet101',
+                          '--im-size', str(IM_SIZE), '--batch', '8'])
+    line = out.getvalue().strip().splitlines()[-1]
+    record = json.loads(line)
+    say('{0} infer_bench: {1}'.format(tag, line))
+    if not record['images_per_sec_per_chip'] > 0:
+        raise AssertionError('infer_bench {0}'.format(record))
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = _argparse.Namespace(
+            ckpt='', algo='ssl_mt', model_key='model', backbone='resnet101',
+            im_size=IM_SIZE, num_classes=21, batch=8, bf16=1, seed=0,
+            cpu=False,
+            out=os.path.join(tmp, 'model.pt2'))
+        t0 = time.perf_counter()
+        path, diff = export_serving.export(opts)
+        say('{0} export_serving: {1:.1f} MB .pt2 in {2:.1f} s (export, '
+            'save, load, run), round trip max|diff| {3:.3g} within atol '
+            '5e-3, rtol 2e-2'.format(tag, os.path.getsize(path) / 1e6,
+                                     time.perf_counter() - t0, diff))
+
+
+def reference_layout(model):
+    """The reference's checkpoint layout of a port DeepLab-v2 task model
+    (``module.model.`` + the reference's key), by inverting
+    ``models/convert.convert_deeplab_v2``'s map: the port keeps the
+    reference's backbone and classifier names under ``net.``."""
+    import re
+
+    state = {}
+    for key, value in model.state_dict().items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        if not key.startswith('net.'):
+            raise AssertionError('unexpected key {0}'.format(key))
+        inner = key[len('net.'):]
+        if not re.match(r'^(backbone\.|classifier\.conv2d_list\.\d+\.)',
+                        inner):
+            raise AssertionError('unexpected key {0}'.format(key))
+        state['module.model.' + inner] = value.detach().cpu().clone()
+    return state
+
+
+def phase_rescore(seed):
+    """``scripts/rescore.py`` of the port on the committed fixture tree:
+    a reference-layout checkpoint of the DeepLab-v2 1-8 SupOnly model,
+    written here from the port's own random weights (``reference_layout``),
+    rescored with the exact protocol; its mIoU must equal (atol 1e-4) the
+    port's own validation of the same weights through the script
+    (``run_script``, validation from a port checkpoint)."""
+    import tempfile
+
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch import harness
+    from pixelssl_tpu_torch.scripts import rescore as rescore_mod
+    from pixelssl_tpu_torch.tasks import sseg
+
+    tag = '[31/31]'
+    script = 'deeplabv2_pascalvoc_1-8_suponly.py'
+    root = os.path.abspath(VOC_FIXTURE)
+    args = full_width_args('ssl_null', seed, batch_size=4,
+                           unlabeled_batch_size=0, **NULL_CONFIG)
+    algo = harness.build_algorithm(args, iters_per_epoch=ITERS_PER_EPOCH)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, 'reference.ckpt')
+        torch.save({'algorithm': 'ssl_null', 'epoch': 40,
+                    'model': reference_layout(algo.model)}, ref)
+        own = algo.save_checkpoint(0, path=os.path.join(tmp, 'own.pth'))
+        del algo
+        overrides = {'out_path': os.path.join(tmp, 'result'),
+                     'num_workers': 0}
+        os.chdir(tmp)  # rescore writes pretrained/<exp_id>.pth here
+        try:
+            rescored = rescore_mod.rescore(script, ref, voc_root=root,
+                                           overrides=overrides)
+        finally:
+            os.chdir(cwd)
+        pretrained = os.path.join(tmp, 'pretrained',
+                                  script[:-3] + '.pth')
+        config = dict(load_script_config(script), **overrides)
+        config.update(trainset={'pascal_voc_aug': [root]},
+                      valset={'pascal_voc_aug': [root]}, resume=own,
+                      validation=True, exact_val=True)
+        proxy = pixelssl_tpu_torch.run_script(
+            config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+            cli_override=False)
+        own_scores = {k: float(m.avg) for k, m in
+                      proxy.ssl_algorithm.meters.items() if 'mIoU' in k}
+        del proxy
+        pretrained_ok = os.path.exists(pretrained)
+    gap = max(abs(rescored[k] - own_scores[k]) for k in own_scores)
+    say('{0} rescore of a reference-layout checkpoint on the fixture tree '
+        '(4 val images, exact protocol): {1}; the port\'s own validation '
+        'of the same weights: {2}; largest difference {3:.3g} (atol 1e-4); '
+        'pretrained/<exp_id>.pth written: {4}'.format(
+            tag, rescored, own_scores, gap, pretrained_ok))
+    if sorted(rescored) != sorted(own_scores) or not gap <= 1e-4 or \
+            not pretrained_ok:
+        raise AssertionError('rescore {0} vs {1}'.format(rescored,
+                                                         own_scores))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2146,19 +3001,25 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/25]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/25]', SCRIPT_GCT, 'ssl_gct',
-                           BLUR_LAUNCHES_PER_STEP, native_augment=True,
-                           decoded_cache=True, u8_transfer=True)
-        run('22', phase_voc, '[22/25]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('20', phase_voc, '[20/31]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/31]', SCRIPT_GCT, 'ssl_gct',
+                           BLUR_LAUNCHES_PER_STEP, multi=True,
+                           native_augment=True, decoded_cache=True,
+                           u8_transfer=True)
+        run('22', phase_voc, '[22/31]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
         sreg_launches = run('23', phase_sreg)
         run('24', phase_optimizers, opts.seed, STEPS)
         run('25', phase_sseg_flags, opts.seed, STEPS)
+        multi_launches = run('26', phase_multi_step, opts.seed)
+        run('27', phase_profile_dir)
+        run('28', phase_eager_ingest)
+        run('29', phase_bench)
+        run('30', phase_serving)
+        run('31', phase_rescore, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
         return 1
-
     # the kernel's line covers one GCT step of phase 5: two calls at each of
     # its shapes; its bound is that of the six calls' bytes and operations;
     # ``script_gct`` and ``pspnet_gct`` the same for a step of phase 11 and
@@ -2184,6 +3045,9 @@ def main(argv=None):
     voc_step = dict(script_step, launches=voc_launches)
     sreg_step = per_step('sreg_gct')
     sreg_step['launches'] = sreg_launches
+    # phase 26's GCT graph run: the harness step's shapes at 8+4 in float32,
+    # 9 steps (2 eager, 7 replays of the captured step)
+    multi_step = dict(gct_step, launches=multi_launches)
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -2208,14 +3072,19 @@ def main(argv=None):
                'script on the VOC fixture (phase 21), the shapes of '
                'script_gct; sreg_gct: the same for the sreg demo\'s GCT '
                '(phase 23) at 64 px, batch 1+1, from the calls of path '
-               'sreg_gct; calls of path large_k: kernels past 129 taps',
+               'sreg_gct; multi_step_gct: the GCT run of phase 26 through '
+               'train_steps (--steps-per-dispatch 4), shapes of path gct, '
+               'launches over its 9 steps, 7 of them CUDA graph replays '
+               'that each add the 6 calls the capture recorded; calls of '
+               'path large_k: kernels past 129 taps',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
         'sreg_gct': sreg_step,
+        'multi_step_gct': multi_step,
         'calls': rows,
     }
-    say('chip_smoke: all 25 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 31 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

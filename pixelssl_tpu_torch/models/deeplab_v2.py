@@ -12,7 +12,7 @@ BN statistics and the output stay float32.
 import torch
 import torch.nn as nn
 
-from .layers import resize_bilinear
+from .layers import bf16_autocast, resize_bilinear
 from .resnet import build_backbone
 
 
@@ -52,8 +52,7 @@ class DeepLabV2(nn.Module):
         self.classifier.init_weights(generator)
 
     def forward(self, x):
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with bf16_autocast(x, self.bf16):
             bx = self.backbone(x)
             logits = self.classifier(bx)
         logits = resize_bilinear(logits.float(), x.shape[2:],

@@ -11,11 +11,11 @@ alone. With ``bf16`` the convolutions run under bf16 autocast, as the JAX
 package's ``aux_compute_dtype`` does.
 """
 
-import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import lecun_normal_, resize_bilinear, leaky_relu_02
+from .layers import (bf16_autocast, lecun_normal_, resize_bilinear,
+                     leaky_relu_02)
 
 
 class FCDiscriminator(nn.Module):
@@ -40,8 +40,7 @@ class FCDiscriminator(nn.Module):
     def forward(self, task_pred):
         """[N,C,H,W] -> raw logits [N,1,H,W] (the BCE activates them)."""
         x = task_pred
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with bf16_autocast(x, self.bf16):
             for name in self.NAMES:
                 x = leaky_relu_02(getattr(self, name)(x))
             x = self.classifier(x)

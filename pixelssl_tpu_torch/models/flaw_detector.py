@@ -14,8 +14,8 @@ under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
 import torch
 import torch.nn as nn
 
-from .layers import (SyncBatchNorm, lecun_normal_, resize_bilinear,
-                     leaky_relu_02)
+from .layers import (SyncBatchNorm, bf16_autocast, lecun_normal_,
+                     resize_bilinear, leaky_relu_02)
 
 
 class IBNorm(nn.Module):
@@ -64,8 +64,7 @@ class FlawDetector(nn.Module):
 
     def forward(self, task_inp, task_pred):
         x = torch.cat(tuple(task_inp) + (task_pred,), dim=1)
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with bf16_autocast(x, self.bf16):
             for name, _, _ in self.SPEC:
                 x = getattr(self, name)(x)
                 x = getattr(self, 'ibn' + name[4:])(x)

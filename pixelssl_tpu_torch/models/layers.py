@@ -25,6 +25,8 @@ NCHW.
   workaround for the TPU compiler.
 * ``lecun_normal_``: the flax ``Conv``/``Dense`` defaults the auxiliary
   modules start from.
+* ``bf16_autocast``: the bf16 autocast region of every model, its cast
+  cache off while a CUDA graph captures the step.
 """
 
 import math
@@ -32,6 +34,17 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def bf16_autocast(x, enabled=True):
+    """bf16 autocast on ``x``'s device. While a CUDA graph captures, the
+    cache of cast weights is off: it lives for one autocast region, and a
+    captured step must not keep tensors of its capture in it (PyTorch's
+    rule for graphed autocast regions); the casts are the same either
+    way."""
+    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    return torch.autocast(x.device.type, dtype=torch.bfloat16,
+                          enabled=enabled, cache_enabled=not capturing)
 
 
 class SyncBatchNorm(nn.BatchNorm2d):
@@ -66,7 +79,9 @@ class SyncBatchNorm(nn.BatchNorm2d):
         xf = x.float()
         per_sample = x.shape[2] * x.shape[3]
         if sample_weight is None:
-            count = xf.new_tensor(float(x.shape[0] * per_sample))
+            # a fill, not a copy from the host: capturable
+            count = torch.full((), float(x.shape[0] * per_sample),
+                               dtype=torch.float32, device=x.device)
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
         else:

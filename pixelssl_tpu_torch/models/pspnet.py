@@ -19,8 +19,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (SyncBatchNorm, adaptive_avg_pool, icnr_init_,
-                     kaiming_normal_, pixel_shuffle, resize_bilinear)
+from .layers import (SyncBatchNorm, adaptive_avg_pool, bf16_autocast,
+                     icnr_init_, kaiming_normal_, pixel_shuffle,
+                     resize_bilinear)
 from .resnet import build_backbone
 
 
@@ -108,8 +109,7 @@ class UpsampleDecoder(nn.Module):
             block.init_weights(generator)
 
     def forward(self, x):
-        with (torch.autocast(x.device.type, dtype=torch.bfloat16)
-              if self.bf16 else contextlib.nullcontext()):
+        with (bf16_autocast(x) if self.bf16 else contextlib.nullcontext()):
             x = self.conv1x1(x)
             for block in self.shuffle:
                 x = block(x)
@@ -134,8 +134,7 @@ class PSPNet(nn.Module):
         self.decoder.init_weights(generator)
 
     def forward(self, x):
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with bf16_autocast(x, self.bf16):
             px = self.psp(self.backbone(x))
             logits = self.decoder(px)
         logits = resize_bilinear(logits.float(), x.shape[2:],

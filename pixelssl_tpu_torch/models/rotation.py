@@ -9,10 +9,10 @@ lr rule never matches it. With ``bf16`` the convolutions and the head run
 under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
 """
 
-import torch
 import torch.nn as nn
 
-from .layers import SyncBatchNorm, lecun_normal_, leaky_relu_02
+from .layers import (SyncBatchNorm, bf16_autocast, lecun_normal_,
+                     leaky_relu_02)
 
 
 class RotationClassifier(nn.Module):
@@ -37,8 +37,7 @@ class RotationClassifier(nn.Module):
 
     def forward(self, x):
         """[N,C,H,W] -> rotation logits [N,4], float32."""
-        with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                            enabled=self.bf16):
+        with bf16_autocast(x, self.bf16):
             x = leaky_relu_02(self.bn1(self.conv1(x)))
             x = leaky_relu_02(self.bn2(self.conv2(x)))
             x = self.fc(x.mean(dim=(2, 3)))

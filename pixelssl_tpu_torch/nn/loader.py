@@ -20,7 +20,19 @@ the algorithms take: NCHW images and int64 labels on the device, copied
 with ``non_blocking`` from pinned memory on the current stream and
 permuted there. uint8 images and labels (``--u8-transfer``) stay uint8
 for the copy, and the task's ``device_prep`` normalises and widens them.
+
+With ``--steps-per-dispatch`` n > 1 the trainer groups an epoch's batches
+with ``chunked``: ``('chunk', [n batches])`` for each dispatch and
+``('single', batch)`` for each batch of the tail (JAX ``nn/loader.py``'s
+chunk mode). With ``eager_ingest`` (``--eager-ingest``) a thread of the
+loader takes the batches from the workers and copies them to the card on a
+side stream, recording an event after each; the consumer's stream waits on
+it. The copy of the next batch then overlaps the current step, and only
+its timing changes: the batches are the same.
 """
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -90,14 +102,103 @@ class _EpochBatches(object):
         return len(self.batches)
 
 
+def chunked(batches, n):
+    """``('chunk', [n batches])`` for each n batches of ``batches``, then
+    ``('single', batch)`` for each batch left over."""
+    chunk = []
+    for batch in batches:
+        chunk.append(batch)
+        if len(chunk) == n:
+            yield 'chunk', chunk
+            chunk = []
+    for batch in chunk:
+        yield 'single', batch
+
+
+def _tensors(item):
+    """The tensors of a batch."""
+    if torch.is_tensor(item):
+        yield item
+    elif isinstance(item, dict):
+        for value in item.values():
+            yield from _tensors(value)
+    elif isinstance(item, (list, tuple)):
+        for value in item:
+            yield from _tensors(value)
+
+
+_END = object()
+
+
+def ingested(items, device, depth=2):
+    """``items`` taken by a thread, each on a side stream of ``device``
+    (the card) with an event recorded after it; yielded once the current
+    stream waits on that event, every tensor marked as used on that stream
+    (``record_stream``). Up to ``depth`` items wait ahead. An error of the
+    thread is raised here; leaving the loop early stops the thread."""
+    device = torch.device(device)
+    cuda = device.type == 'cuda'
+    out = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(entry):
+        while not stop.is_set():
+            try:
+                out.put(entry, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        side = torch.cuda.Stream(device) if cuda else None
+        try:
+            it = iter(items)
+            while not stop.is_set():
+                if cuda:
+                    with torch.cuda.stream(side):
+                        item = next(it, _END)
+                        event = torch.cuda.Event()
+                        event.record(side)
+                else:
+                    item, event = next(it, _END), None
+                if not put((item, event, None)) or item is _END:
+                    return
+        except Exception as exc:  # handed to the consumer, raised there
+            put((_END, None, exc))
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, event, exc = out.get()
+            if exc is not None:
+                raise exc
+            if item is _END:
+                return
+            if cuda:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(event)
+                for tensor in _tensors(item):
+                    if tensor.is_cuda:
+                        tensor.record_stream(stream)
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+
+
 class DataLoader(object):
     """Train batches on ``device`` from ``dataset`` and ``batch_sampler``,
     loaded by ``num_workers`` worker processes (none: in the main
-    process). Each epoch walks ``batch_sampler`` once."""
+    process). Each epoch walks ``batch_sampler`` once; ``eager_ingest``
+    as the module docstring says."""
 
-    def __init__(self, dataset, batch_sampler, device, num_workers=0):
+    def __init__(self, dataset, batch_sampler, device, num_workers=0,
+                 eager_ingest=False):
         self.batch_sampler = batch_sampler
         self.device = torch.device(device)
+        self.eager_ingest = bool(eager_ingest)
         self._epoch = _EpochBatches()
         self._accesses = {}  # idx -> accesses handed out so far
         workers = dict(multiprocessing_context=START_METHOD,
@@ -119,8 +220,14 @@ class DataLoader(object):
             keys.append((idx, k))
         return keys
 
+    def _batches(self):
+        for inp, gt in self.loader:
+            yield to_device(inp, gt, self.device)
+
     def __iter__(self):
         # the epoch's keys are counted when it starts
         self._epoch.batches = [self._keys(b) for b in self.batch_sampler]
-        for inp, gt in self.loader:
-            yield to_device(inp, gt, self.device)
+        items = self._batches()
+        if self.eager_ingest:
+            items = ingested(items, self.device)
+        return iter(items)

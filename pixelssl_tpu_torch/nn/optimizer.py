@@ -41,6 +41,15 @@ algorithm sets ``group['lr'] = schedule(step) * lr_mult`` before every
 step (``set_lr``), which scales the final update as the JAX package's
 per-leaf multiplier does. A parameter without a gradient is stepped with a
 zero one, as every leaf of an optax tree is.
+
+A step captured into a CUDA graph (``--steps-per-dispatch``) must not
+freeze a number that changes from step to step: there a group's ``lr`` is
+a 0-d float32 device tensor, and the ``adam`` rules' bias corrections come
+from ``scalar(fn)``, which the algorithm's ``StepScalars`` turns into such
+a tensor, refilled by the host with ``fn()`` before every replay. Either
+way the values are the float32 roundings of the same host numbers, so a
+replayed step computes what an eager one does. ``Adam`` is torch's own, a
+capturable step on the card.
 """
 
 import numpy as np
@@ -132,6 +141,29 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.clip_norm = clip_norm
         self.bf16_state = bool(bf16_state)
         self.hp = hparams
+        # the algorithm's ``StepScalars`` (``ssl_base``); None: numbers
+        self.step_scalars = None
+        # each group's lr as a function of the host's state (``ssl_base``)
+        self.lr_fns = None
+
+    def scalar(self, fn):
+        """``fn()``, a number the host computes from the optimizer's
+        state, or while the step is captured its device tensor (module
+        docstring)."""
+        if self.step_scalars is None:
+            return fn()
+        return self.step_scalars.get(fn)
+
+    def advance(self, counts):
+        """Add ``counts`` ({parameter: n}) to the parameters' update
+        counts: the host's record of updates that a CUDA graph replay ran
+        without this method's Python."""
+        for p, n in counts.items():
+            self.state[p]['step'] += n
+
+    def counts(self):
+        """{parameter: update count} of every parameter with state."""
+        return {p: st['step'] for p, st in self.state.items() if st}
 
     def state_keys(self):
         """The float state each parameter carries under this rule."""
@@ -216,6 +248,8 @@ class ChainOptimizer(torch.optim.Optimizer):
             self.state[p]['step'] = count + 1
 
     def _sgd(self, params, grads, work, count):
+        # ``count`` is read at capture, never 0 there (a graph is captured
+        # after an eager step): the dampening scale is fixed from then on
         hp = self.hp
         if hp['weight_decay'] > 0:
             grads = torch._foreach_add(grads, params,
@@ -268,8 +302,11 @@ class ChainOptimizer(torch.optim.Optimizer):
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-        mu_hat = torch._foreach_div(mu, _bias_correction(b1, count + 1))
-        nu_hat = torch._foreach_div(nu, _bias_correction(b2, count + 1))
+        p0 = params[0]
+        mu_hat = torch._foreach_div(mu, self.scalar(
+            lambda: _bias_correction(b1, self.state[p0]['step'] + 1)))
+        nu_hat = torch._foreach_div(nu, self.scalar(
+            lambda: _bias_correction(b2, self.state[p0]['step'] + 1)))
         if 'max_exp_avg_sq' in work:
             torch._foreach_maximum_(work['max_exp_avg_sq'], nu_hat)
             nu_hat = work['max_exp_avg_sq']
@@ -281,6 +318,34 @@ class ChainOptimizer(torch.optim.Optimizer):
         return update
 
     _wdadam = _adam
+
+
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam`` (no weight decay, no AMSGrad): the flaw
+    detector's and the discriminator's optimizer (JAX
+    ``optax.scale_by_adam`` with their own schedules).
+
+    On the card it is torch's capturable step, eager or captured alike:
+    the update count lives in a device tensor and the bias corrections are
+    computed there, so a CUDA graph replay reads and advances them, and the
+    lr may be a 0-d device tensor (``StepScalars``). On the CPU it is
+    torch's plain step with the lr a number, the one each group's lr
+    function (``lr_fns``, set by the algorithm with the lr) gives: a 0-d
+    lr tensor there (a step in tensor mode) would round otherwise.
+    """
+
+    def __init__(self, params, lr, betas=(0.9, 0.99), eps=1e-8):
+        params = list(params)
+        super(Adam, self).__init__(params, lr=lr, betas=betas, eps=eps,
+                                   capturable=params[0].is_cuda)
+        self.lr_fns = None
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if not self.defaults['capturable']:
+            for group, fn in zip(self.param_groups, self.lr_fns or ()):
+                group['lr'] = fn()
+        return super(Adam, self).step(closure)
 
 
 def _factory(name, args, **hparams):

@@ -21,8 +21,12 @@ the reflect boundary, ``out[n] = Bh @ X[n] @ Bw^T``, computed in float32:
 The kernel takes every odd kernel size, as the JAX function does: its
 shared-memory strip is sized from k at launch, and a k past 512 taps runs
 in chunks of them. Nothing falls back: a CUDA tensor that meets a failed
-build or launch raises. ``launches`` counts the kernel's calls (one call,
-two passes).
+build or launch raises. ``launches`` counts the kernel's launches (one
+call, two passes). A call made while a CUDA graph captures launches
+nothing: it counts in ``captured`` instead, and the graph's owner adds the
+calls it captured to ``launches`` on every replay
+(``ssl_algorithm.ssl_base.CapturedStep``), so that the count stays one a
+launch on every path.
 """
 
 import ctypes
@@ -41,6 +45,7 @@ from ..nn.module.gaussian_blur import gaussian_kernel_1d
 _MAX_GRID_Z = 65535
 
 launches = 0
+captured = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, 'csrc', 'blur.cu')
@@ -147,7 +152,7 @@ def _device_taps(kernel_size, device):
 def blur_kernel(x, kernel_size):
     """Launch ``csrc/blur.cu`` on a contiguous [N,H,W] float32 CUDA tensor,
     on the current stream; returns a new [N,H,W] tensor."""
-    global launches
+    global launches, captured
     k = int(kernel_size)
     if not x.is_cuda:
         raise ValueError('blur_kernel needs a CUDA tensor')
@@ -172,7 +177,10 @@ def blur_kernel(x, kernel_size):
     if code != 0:
         raise RuntimeError('blur kernel launch failed: {0}'.format(
             lib.pixelssl_cuda_error_string(code).decode()))
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

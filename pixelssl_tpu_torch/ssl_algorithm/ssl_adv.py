@@ -19,8 +19,9 @@ One step has two parts (JAX ``_step_fn``, ssl_adv.py:123-239):
   rows; ``d_loss = (fake + real) / 2``, each term times
   ``--discriminator-scale``.
 
-D has its own Adam (β 0.9, 0.99, eps 1e-8, no weight decay) and its own
-poly schedule, ``discriminator_lr * (1 - k / max_iters) ** power`` on its
+D has its own Adam (β 0.9, 0.99, eps 1e-8, no weight decay;
+``nn.optimizer.Adam``, torch's Adam with a step a CUDA graph can capture)
+and its own poly schedule, ``discriminator_lr * (1 - k / max_iters) ** power`` on its
 update count k (ssl_adv.py:93-113); its lr scales with the device count,
 which is 1 here.
 """
@@ -29,7 +30,7 @@ import torch
 
 from ..models.discriminator import FCDiscriminator, fc_discriminator_criterion
 from ..nn.func import split_tensor_tuple
-from ..nn.optimizer import set_lr
+from ..nn.optimizer import Adam
 from ..utils import cmd, logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext
@@ -102,9 +103,9 @@ class SSLADV(SSLBase):
 
     def _build_optimizers(self):
         self.opt = self.ctx.optimizers['model'].make(self.model.param_groups())
-        self.d_opt = torch.optim.Adam(self.d_model.parameters(),
-                                      lr=self.d_lr_schedule(0),
-                                      betas=(0.9, 0.99), eps=1e-8)
+        self.d_opt = Adam(self.d_model.parameters(),
+                          lr=self.d_lr_schedule(0), betas=(0.9, 0.99),
+                          eps=1e-8)
         return {'opt': self.opt, 'd_opt': self.d_opt}
 
     def _fcd_loss(self, cmap, task_gt, is_real):
@@ -119,7 +120,6 @@ class SSLADV(SSLBase):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = self.ctx.lbs
         ubs = self.ctx.ubs or 0
-        step = self.state.step
         l_gt = split_tensor_tuple(gt, 0, lbs)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
 
@@ -137,7 +137,7 @@ class SSLADV(SSLBase):
         if ubs > 0:
             unlabeled_adv = args.unlabeled_adv_scale * self._global_mean(
                 self._fcd_loss(cmap[lbs:], None, True))
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, task_loss + labeled_adv + unlabeled_adv,
                             self.model.parameters())
 
@@ -158,7 +158,7 @@ class SSLADV(SSLBase):
             fake_losses)
         real_d_loss = args.discriminator_scale * self._global_mean(
             self._fcd_loss(d_cmap[n_fake:], l_gt[0], True))
-        set_lr(self.d_opt, self.d_lr_schedule(step))
+        self._set_lr(self.d_opt, self.d_lr_schedule)
         self._apply_updates(self.d_opt, (fake_d_loss + real_d_loss) / 2.0,
                             self.d_model.parameters())
 
@@ -167,8 +167,7 @@ class SSLADV(SSLBase):
                 'unlabeled_adv_loss': unlabeled_adv.detach(),
                 'fake_d_loss': fake_d_loss.detach(),
                 'real_d_loss': real_d_loss.detach(),
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+                'lr': lr}
 
     def _eval_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])

@@ -14,19 +14,30 @@ algorithm's name, which ``load_checkpoint`` checks (reference ssl_null.py:194-21
 Per-step randomness comes from ``_step_rng(step, salt)``, a generator
 seeded from ``(seed, step)``: resuming needs the seed and the step, which
 the checkpoint carries as the JAX package's carries its base key.
+
+``--steps-per-dispatch n > 1`` (the JAX package's ``_train_multi``, a
+``lax.scan`` of n steps in one dispatch) runs ``train_steps``: on the card
+one train step captured into a CUDA graph (``CapturedStep``) and replayed
+once a step, with no host sync between replays; on the CPU the same loop
+without a graph. The numbers a step takes from the host (lr, ramp-up
+coefficients, EMA decay, the ``adam`` rules' bias corrections) come through
+``_scalar(fn)`` (``StepScalars``): Python numbers in an eager step, 0-d
+float32 tensors refilled before every replay in a captured one.
 """
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..nn.func import count_params
+from ..nn import loader as nnloader
+from ..nn.func import count_params, sigmoid_rampup
+from ..nn.optimizer import ChainOptimizer
+from ..ops import blur
 from ..task_template.func import METRIC_STR
-from ..utils import logger
+from ..utils import logger, profiler
 from ..utils.logger import AvgMeterSet
 
 
@@ -62,6 +73,160 @@ class TrainState(object):
         self.seed = int(seed)
 
 
+class StepScalars(object):
+    """The numbers a train step takes from the host, each a function of
+    the host's state (the step count, an optimizer's update count).
+
+    By default ``get(fn)`` returns ``fn()``, a Python number, and the
+    step's arithmetic is that of an eager step. Between ``begin()`` and
+    ``end()`` (tensor mode) it returns a 0-d float32 tensor and keeps
+    ``fn``: on the card a slot of ``values``, into which ``refill(fns)``
+    writes every kept ``fn()`` before each replay of the captured step;
+    on the CPU a new tensor holding ``fn()``. Either holds the float32
+    rounding of the number that the eager step passes as a Python scalar,
+    which a kernel rounds the same way, so both compute alike.
+    """
+
+    SLOTS = 64
+    # pinned rows the host writes in turn: one is rewritten only after the
+    # copy that read it ``RING`` replays ago has run
+    RING = 64
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.fns = None
+        self.values = None
+        self._pinned = None
+        self._events = None
+        self._turn = 0
+
+    def get(self, fn):
+        if self.fns is None:
+            return fn()
+        if self.device.type != 'cuda':
+            self.fns.append(fn)
+            return torch.tensor(fn(), dtype=torch.float32)
+        if len(self.fns) == self.SLOTS:
+            raise RuntimeError('a step takes more than {0} host scalars'
+                               .format(self.SLOTS))
+        self.fns.append(fn)
+        return self.values[len(self.fns) - 1]
+
+    def begin(self):
+        if self.values is None and self.device.type == 'cuda':
+            self.values = torch.zeros(self.SLOTS, dtype=torch.float32,
+                                      device=self.device)
+        self.fns = []
+
+    def end(self):
+        """Back to numbers; returns the functions kept since ``begin``."""
+        fns, self.fns = self.fns, None
+        return fns
+
+    def refill(self, fns):
+        """Every ``fn()`` of ``fns`` into its slot, through a pinned row
+        copied on the current stream (the card only)."""
+        if self._pinned is None:
+            self._pinned = torch.zeros((self.RING, self.SLOTS),
+                                       dtype=torch.float32).pin_memory()
+            self._rows = self._pinned.numpy()
+            self._events = [torch.cuda.Event() for _ in range(self.RING)]
+        row = self._turn % self.RING
+        self._turn += 1
+        self._events[row].synchronize()
+        self._rows[row, :len(fns)] = [fn() for fn in fns]
+        self.values[:len(fns)].copy_(self._pinned[row, :len(fns)],
+                                     non_blocking=True)
+        self._events[row].record()
+
+
+class CapturedStep(object):
+    """One train step of ``algo`` captured into a CUDA graph, replayed once
+    a step (the counterpart of the JAX package's ``lax.scan`` body).
+
+    The graph reads its batch from static buffers, which ``run`` fills
+    from each batch on the device, and its per-step numbers from the
+    algorithm's ``StepScalars``; the per-step generators of
+    ``_step_rng`` are one registered generator a salt, seeded before each
+    replay with the seed ``_step_rng`` would give that step, so that the
+    draws are the eager step's. Capture runs no kernel and must leave the
+    host's state as it was: the update counts that ``ChainOptimizer``s keep
+    on the host and every group's lr are put back, and ``run`` moves those
+    counts, ``state.step`` and the blur kernel's ``launches`` (by the calls
+    the capture recorded) after each replay; torch's capturable ``Adam``
+    keeps its count on the device, where the replay advances it.
+    Parameters, buffers and optimizer state exist before the capture (an
+    eager step ran first) and are updated in place ever after.
+    """
+
+    SALTS = (0, 1)
+
+    def __init__(self, algo, batch):
+        self.algo = algo
+        device = algo.device
+        torch.cuda.synchronize(device)
+        self.static = {key: tuple(x.clone() for x in batch[key])
+                       for key in ('inp', 'gt')}
+        self.generators = {salt: torch.Generator(device=device)
+                           for salt in self.SALTS}
+        self.graph = torch.cuda.CUDAGraph()
+        for generator in self.generators.values():
+            self.graph.register_generator_state(generator)
+        optimizers = list(algo.optimizers.values())
+        self.counted = [opt for opt in optimizers
+                        if isinstance(opt, ChainOptimizer)]
+        counts = [opt.counts() for opt in self.counted]
+        lrs = [[g['lr'] for g in opt.param_groups] for opt in optimizers]
+        captured = blur.captured
+        algo.step_scalars.begin()
+        algo._capture_generators = self.generators
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = algo._step_fn(
+                    algo.ctx.task_func.device_prep(self.static))
+        finally:
+            algo._capture_generators = None
+            self.fns = algo.step_scalars.end()
+            self.count_steps = []
+            for opt, before in zip(self.counted, counts):
+                after = opt.counts()
+                self.count_steps.append({p: n - before.get(p, 0)
+                                         for p, n in after.items()})
+                opt.advance({p: -n for p, n in self.count_steps[-1].items()})
+            for opt, group_lrs in zip(optimizers, lrs):
+                for group, lr in zip(opt.param_groups, group_lrs):
+                    group['lr'] = lr
+        self.blur_calls = blur.captured - captured
+
+    def run(self, batches, history=None):
+        """A replay for each batch; returns the last step's metrics (and
+        appends each step's to ``history`` when given)."""
+        algo = self.algo
+        for batch in batches:
+            for key, static in self.static.items():
+                for dst, src in zip(static, batch[key]):
+                    if dst.shape != src.shape or dst.dtype != src.dtype:
+                        raise ValueError(
+                            'a captured step takes {0} {1}, got {2} {3}'
+                            .format(key, tuple(dst.shape),
+                                    tuple(src.shape), src.dtype))
+                    dst.copy_(src, non_blocking=True)
+            step = algo.state.step
+            algo.step_scalars.refill(self.fns)
+            for salt, generator in self.generators.items():
+                generator.manual_seed(algo._step_seed(step, salt))
+            self.graph.replay()
+            algo._host_lrs(step)
+            algo.state.step = step + 1
+            for opt, counts in zip(self.counted, self.count_steps):
+                opt.advance(counts)
+            blur.launches += self.blur_calls
+            if history is not None:
+                history.append({k: v.clone() for k, v in
+                                self.outputs.items()})
+        return {k: v.clone() for k, v in self.outputs.items()}
+
+
 class SSLBase(object):
     NAME = 'ssl_base'
     SUPPORTED_TASK_TYPES = []
@@ -74,6 +239,9 @@ class SSLBase(object):
         self.modules = {}
         self.optimizers = {}
         self.meters = AvgMeterSet()
+        self.step_scalars = StepScalars(self.device)
+        self._captured = None
+        self._capture_generators = None
 
     def build(self):
         """Initialise the weights from ``--seed``."""
@@ -84,8 +252,15 @@ class SSLBase(object):
             logger.log_info('Model `{0}`: {1:,} parameters'.format(
                 name, count_params(module)))
         self.optimizers = self._build_optimizers()
+        for optimizer in self.optimizers.values():
+            if isinstance(optimizer, ChainOptimizer):
+                optimizer.step_scalars = self.step_scalars
         self.state = TrainState(self.args.seed)
         return self.state
+
+    @property
+    def steps_per_dispatch(self):
+        return max(1, int(getattr(self.args, 'steps_per_dispatch', 1) or 1))
 
     def _build_modules(self, generator):
         """Create and initialise the modules; returns {name: module}."""
@@ -102,6 +277,59 @@ class SSLBase(object):
         self.state.step += 1
         return metrics
 
+    def train_steps(self, batches, history=None):
+        """``len(batches)`` train steps in one dispatch (``--steps-per-
+        dispatch``); returns the last one's metrics. On the card the
+        first call runs one eager step that counts, on a side stream
+        (cuDNN's autotuning, the optimizer's state, the allocator's
+        blocks), then captures the step into a CUDA graph
+        (``CapturedStep``); every other step is a replay. On the CPU each
+        step runs eagerly with its host numbers as tensors (the captured
+        step's arithmetic). Nothing falls back: a failed capture raises.
+        ``history``, a list, gets every step's metrics."""
+        batches = list(batches)
+        if self.device.type != 'cuda':
+            return self._tensor_steps(batches, history)
+        metrics = None
+        if self._captured is None:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                metrics = self.train_step(batches[0])
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            if history is not None:
+                history.append(metrics)
+            self._captured = CapturedStep(self, batches[0])
+            batches = batches[1:]
+        if batches:
+            metrics = self._captured.run(batches, history)
+        return metrics
+
+    def _tensor_steps(self, batches, history=None):
+        for batch in batches:
+            step = self.state.step
+            self.step_scalars.begin()
+            try:
+                metrics = self.train_step(batch)
+            finally:
+                self.step_scalars.end()
+            self._host_lrs(step)
+            if history is not None:
+                history.append({k: v.clone() for k, v in metrics.items()})
+        return {k: v.clone() for k, v in metrics.items()}
+
+    def _host_lrs(self, step):
+        """Each optimizer group's lr the number an eager step ``step``
+        leaves there (``_set_lr``'s functions), in place of a tensor of a
+        step run in tensor mode."""
+        now, self.state.step = self.state.step, step
+        try:
+            for opt in self.optimizers.values():
+                for group, fn in zip(opt.param_groups, opt.lr_fns or ()):
+                    group['lr'] = fn()
+        finally:
+            self.state.step = now
+
     def _step_fn(self, batch):
         raise NotImplementedError
 
@@ -115,14 +343,68 @@ class SSLBase(object):
     # helpers shared by the step functions
     # ------------------------------------------------------------------
 
+    def _step_seed(self, step, salt=0):
+        seq = np.random.SeedSequence([self.state.seed,
+                                      int(step) * 131 + int(salt)])
+        return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
     def _step_rng(self, step, salt=0):
         """A generator on the algorithm's device for step ``step``, seeded
         from ``(seed, step * 131 + salt)`` as the JAX package folds its key
-        (ssl_base.py:173-175); the draws themselves differ from JAX's."""
-        seq = np.random.SeedSequence([self.state.seed,
-                                      int(step) * 131 + int(salt)])
-        seed = int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        (ssl_base.py:173-175); the draws themselves differ from JAX's.
+        While the step is captured: the graph's generator of ``salt``,
+        which ``CapturedStep.run`` seeds so before each replay."""
+        if self._capture_generators is not None:
+            if salt not in self._capture_generators:
+                raise ValueError('no captured generator for salt {0}'
+                                 .format(salt))
+            return self._capture_generators[salt]
+        return torch.Generator(device=self.device).manual_seed(
+            self._step_seed(step, salt))
+
+    def _scalar(self, fn):
+        """``fn()``, a number of this step computed on the host from
+        ``self.state``, as the step takes it (``StepScalars``)."""
+        return self.step_scalars.get(fn)
+
+    def _metric(self, fn):
+        """``_scalar(fn)`` as a 0-d float32 metric tensor."""
+        value = self._scalar(fn)
+        if torch.is_tensor(value):
+            return value
+        return torch.tensor(value, dtype=torch.float32)
+
+    def _set_lr(self, optimizer, schedule):
+        """Each group's lr = ``schedule(step) * lr_mult`` before the
+        optimizer's step (``nn.optimizer.set_lr``); returns the step's lr
+        as a metric."""
+        fns = [lambda m=group.get('lr_mult', 1.0):
+               schedule(self.state.step) * m
+               for group in optimizer.param_groups]
+        for group, fn in zip(optimizer.param_groups, fns):
+            group['lr'] = self._scalar(fn)
+        optimizer.lr_fns = fns
+        return self._metric(lambda: schedule(self.state.step))
+
+    def _rampup(self, epochs, scale):
+        """The ramp-up of ``epochs`` epochs at this step times ``scale``
+        (``nn.func.sigmoid_rampup``), one host number."""
+        length = self.ctx.iters_per_epoch * max(epochs, 0)
+        return self._scalar(
+            lambda: sigmoid_rampup(self.state.step, length) * scale)
+
+    def _ema_decay(self, ema_decay):
+        """(decay, 1 - decay) of this step's EMA, decay = ``min(1 -
+        1/(step+1), ema_decay)``, host numbers."""
+        def decay():
+            return min(1.0 - 1.0 / (self.state.step + 1.0), ema_decay)
+        return self._scalar(decay), self._scalar(lambda: 1.0 - decay())
+
+    def _ema_update(self, teacher, student, ema_decay):
+        """The teacher's parameters move to the student's
+        (``ema_update``) with this step's ``_ema_decay``."""
+        ema_update(teacher.parameters(), student.parameters(),
+                   *self._ema_decay(ema_decay))
 
     def _global_mean(self, vec):
         """Mean of a per-sample vector over the batch (one card)."""
@@ -141,44 +423,87 @@ class SSLBase(object):
     # ------------------------------------------------------------------
 
     def train(self, data_loader, epoch):
-        """One epoch: a ``train_step`` for each batch of ``data_loader``.
-        The metrics come to the host (a device sync) only every
-        ``--log-freq`` iterations and on the last one, where they feed the
-        meters, the iteration's log line and a ``metrics.jsonl`` record.
-        The record also carries ``batch_time``, the wall time per
-        iteration since the last such point, and ``data_time``, the part
-        of it spent waiting for the loader (host clock; the device runs
-        ahead of the host between syncs)."""
+        """One epoch: a ``train_step`` for each batch of ``data_loader``,
+        or with ``--steps-per-dispatch`` n > 1 a ``train_steps`` for each n
+        of them (``_train_multi``). The metrics come to the host (a device
+        sync) only every ``--log-freq`` iterations and on the last one,
+        where they feed the meters, the iteration's log line and a
+        ``metrics.jsonl`` record. The record also carries ``batch_time``,
+        the wall time per iteration since the last such point, and
+        ``data_time``, the part of it spent waiting for the loader (host
+        clock; the device runs ahead of the host between syncs).
+        ``--profile-dir`` traces steps [1, 1 + ``--profile-steps``] of
+        epoch 0 (``utils.profiler.ProfileWindow``)."""
+        if self.steps_per_dispatch > 1:
+            return self._train_multi(data_loader, epoch)
         self.meters.reset()
-        args = self.args
         n_batches = len(data_loader)
-        log_freq = max(1, args.log_freq)
-        t0 = time.time()
-        wait = 0.0
-        last_logged = 0
-        t_wait = t0
+        log_freq = max(1, self.args.log_freq)
+        prof = profiler.ProfileWindow(self.args, epoch, self.device)
+        timer = profiler.StepTimer()
         for idx, batch in enumerate(data_loader):
-            wait += time.time() - t_wait
+            timer.host_done()
+            prof.tick(idx)
             metrics = self.train_step(batch)
-            if (idx + 1) % log_freq == 0 or idx == n_batches - 1:
-                values = {k: v.item() for k, v in metrics.items()}
-                n = max(1, idx + 1 - last_logged)
-                times = {'batch_time': (time.time() - t0) / n,
-                         'data_time': wait / n}
-                self.meters.update_dict(values)
-                self.meters.update_dict(times)
-                last_logged = idx + 1
-                logger.log_info('epoch {0:>3} iter {1:>5}/{2:<5} {3}'.format(
-                    epoch, idx + 1, n_batches, '  '.join(
-                        '{0}: {1:.5f}'.format(k, v)
-                        for k, v in sorted(values.items()))))
-                self._log_jsonl(dict(values, phase='train', epoch=epoch,
-                                     iter=idx + 1, algorithm=self.NAME,
-                                     **times))
-                t0 = time.time()
-                wait = 0.0
-            t_wait = time.time()
+            due = (idx + 1) % log_freq == 0 or idx == n_batches - 1
+            self._step_done(epoch, idx + 1, n_batches, metrics, timer, 1, due)
+        prof.close()
         return self.meters
+
+    def _train_multi(self, data_loader, epoch):
+        """The multi-step path (JAX ``_train_multi``): the batches of
+        ``data_loader`` grouped n a dispatch (``nn.loader.chunked``), each
+        chunk one ``train_steps``; a tail of fewer than n batches takes the
+        eager single step. The metrics of a dispatch are its last step's,
+        logged when the dispatch reaches a multiple of ``--log-freq`` and
+        at the epoch's end; the profiler's window counts dispatches."""
+        self.meters.reset()
+        n = self.steps_per_dispatch
+        n_batches = len(data_loader)
+        log_freq = max(1, self.args.log_freq)
+        prof = profiler.ProfileWindow(self.args, epoch, self.device)
+        timer = profiler.StepTimer()
+        done = dispatches = 0
+        for kind, payload in nnloader.chunked(data_loader, n):
+            timer.host_done()
+            if kind == 'chunk':
+                prof.tick(dispatches)
+                dispatches += 1
+                metrics = self.train_steps(payload)
+                steps = len(payload)
+                done += steps
+                due = done % max(log_freq, n) < n
+            else:
+                metrics = self.train_step(payload)
+                steps = 1
+                done += 1
+                due = done % log_freq == 0
+            self._step_done(epoch, done, n_batches, metrics, timer, steps,
+                            due or done >= n_batches)
+        prof.close()
+        return self.meters
+
+    def _step_done(self, epoch, done, n_batches, metrics, timer, steps, due):
+        """``steps`` steps queued, ``done`` of the epoch. When ``due``, the
+        metrics come to the host: the meters, the iteration's log line and
+        its ``metrics.jsonl`` record with the timer's means since the last
+        such point, and the timer starts anew."""
+        if not due:
+            timer.step_done(steps)
+            return
+        values = {k: v.item() for k, v in metrics.items()}
+        timer.step_done(steps)
+        times = {'batch_time': timer.mean_step + timer.mean_data,
+                 'data_time': timer.mean_data}
+        timer.reset()
+        self.meters.update_dict(values)
+        self.meters.update_dict(times)
+        logger.log_info('epoch {0:>3} iter {1:>5}/{2:<5} {3}'.format(
+            epoch, done, n_batches, '  '.join(
+                '{0}: {1:.5f}'.format(k, v)
+                for k, v in sorted(values.items()))))
+        self._log_jsonl(dict(values, phase='train', epoch=epoch, iter=done,
+                             algorithm=self.NAME, **times))
 
     def log_epoch_summary(self, epoch, wall_s, n_iters):
         """The epoch's samples/s through the whole loop (loader, copies to
@@ -300,6 +625,9 @@ class SSLBase(object):
             module.load_state_dict(ckpt['modules'][key])
         for key, optimizer in self.optimizers.items():
             optimizer.load_state_dict(ckpt['optimizers'][key])
+        # the optimizers' state tensors are new: a captured step would
+        # update the old ones, so the next dispatch captures again
+        self._captured = None
         self.state.step = int(ckpt['step'])
         self.state.seed = int(ckpt['seed'])
         logger.log_info('Loaded checkpoint: {0} (epoch {1})'.format(
@@ -308,15 +636,23 @@ class SSLBase(object):
 
 
 @torch.no_grad()
-def ema_update(t_params, s_params, decay):
-    """Teacher <- decay * teacher + (1 - decay) * student, in place, in
-    float32 whatever the teacher's storage dtype; the result is rounded
-    back to it (JAX ssl_base.py:517-527)."""
+def ema_update(t_params, s_params, decay, rest=None):
+    """Teacher <- decay * teacher + rest * student, ``rest`` = 1 - decay
+    unless given, in place, in float32 whatever the teacher's storage
+    dtype; the result is rounded back to it (JAX ssl_base.py:517-527).
+    ``decay`` and ``rest`` are numbers, or 0-d tensors in a captured
+    step (``StepScalars``)."""
+    if rest is None:
+        rest = 1.0 - decay
     t_params = list(t_params)
     work = [t.float() for t in t_params]  # float32 leaves: the same tensor
+    students = [s.float() for s in s_params]
     torch._foreach_mul_(work, decay)
-    torch._foreach_add_(work, [s.float() for s in s_params],
-                        alpha=1.0 - decay)
+    if torch.is_tensor(rest):
+        # w + s * rest in one rounding, as the alpha form below computes it
+        torch._foreach_addcmul_(work, students, [rest] * len(students))
+    else:
+        torch._foreach_add_(work, students, alpha=rest)
     for t, w in zip(t_params, work):
         if w is not t:
             t.copy_(w)

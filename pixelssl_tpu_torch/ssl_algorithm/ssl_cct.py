@@ -33,8 +33,7 @@ import torch.nn as nn
 from ..models import cct_decoders as cct
 from ..models.layers import resize_bilinear
 from ..models.pspnet import UpsampleDecoder
-from ..nn.func import sigmoid_rampup, split_tensor_tuple
-from ..nn.optimizer import set_lr
+from ..nn.func import split_tensor_tuple
 from ..utils import cmd, logger
 from ..utils.constant import CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext
@@ -222,9 +221,6 @@ class SSLCCT(SSLBase):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = ctx.lbs
         ubs = ctx.ubs or 0
-        step = self.state.step
-        rampup = sigmoid_rampup(
-            step, ctx.iters_per_epoch * max(args.cons_rampup_epochs, 0))
         l_inp = split_tensor_tuple(inp, 0, lbs)
         l_gt = split_tensor_tuple(gt, 0, lbs)
 
@@ -238,7 +234,8 @@ class SSLCCT(SSLBase):
             latent = ul_resulter['sslcct_ad_inp']
             main_pred = ul_resulter['pred'][0].detach()
             ad_gt = ul_resulter['activated_pred'][0].detach().float()
-            draws = self._draw_decoder_noise(step, tuple(latent.shape))
+            draws = self._draw_decoder_noise(self.state.step,
+                                             tuple(latent.shape))
             ad_preds = [
                 resize_bilinear(apply_decoder(
                     spec, self.model.ads['ad_{0}'.format(i)], latent,
@@ -248,15 +245,15 @@ class SSLCCT(SSLBase):
             activated = ctx.task_func.sslcct_activate_ad_preds(ad_preds)
             mses = [self._global_mean(torch.square(a - ad_gt).mean(
                 dim=(1, 2, 3))) for a in activated]
-            cons_loss = rampup * args.cons_scale * (sum(mses) / len(mses))
+            cons_loss = self._rampup(args.cons_rampup_epochs,
+                                     args.cons_scale) * (sum(mses) / len(mses))
 
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, task_loss + cons_loss,
                             self.model.parameters())
         return {'task_loss': task_loss.detach(),
                 'cons_loss': cons_loss.detach(),
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+                'lr': lr}
 
     def _eval_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])

@@ -26,13 +26,12 @@ import copy
 
 import torch
 
-from ..nn.func import sigmoid_rampup, split_tensor_tuple
-from ..nn.optimizer import set_lr
+from ..nn.func import split_tensor_tuple
 from ..ops.boxmask import box_masks
 from ..utils import cmd, logger
 from ..utils.constant import CLASSIFICATION
-from .ssl_base import (SSLBase, TaskContext, ema_update,
-                       forward_with_float32_params, maybe_bf16)
+from .ssl_base import (SSLBase, TaskContext, forward_with_float32_params,
+                       maybe_bf16)
 
 
 def add_parser_arguments(parser):
@@ -115,9 +114,6 @@ class SSLCUTMIX(SSLBase):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = ctx.lbs
         ubs = ctx.ubs or 0
-        step = self.state.step
-        rampup = sigmoid_rampup(
-            step, ctx.iters_per_epoch * max(args.cons_rampup_epochs, 0))
         l_inp = split_tensor_tuple(inp, 0, lbs)
         l_gt = split_tensor_tuple(gt, 0, lbs)
 
@@ -150,18 +146,17 @@ class SSLCUTMIX(SSLBase):
                     s_act.float() - t_act.float()).mean(
                         dim=tuple(range(1, s_act.dim()))))
                 cons_loss = cons_loss + mse * conf
-            cons_loss = rampup * args.cons_scale * cons_loss
+            cons_loss = self._rampup(args.cons_rampup_epochs,
+                                     args.cons_scale) * cons_loss
 
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, task_loss + cons_loss,
                             self.model.parameters())
-        decay = min(1.0 - 1.0 / (step + 1.0), args.ema_decay)
-        ema_update(self.teacher.parameters(), self.model.parameters(), decay)
+        self._ema_update(self.teacher, self.model, args.ema_decay)
 
         return {'task_loss': task_loss.detach(),
                 'cons_loss': cons_loss.detach(),
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+                'lr': lr}
 
     def _eval_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])

@@ -17,7 +17,8 @@ One step has three phases (reference ssl_gct.py:176-298, JAX
   ramped dynamic consistency; the FD forwards in the graph but gathers no
   gradient;
 * phase 2: the FD takes an Adam(0.9, 0.99) step on the labeled slice,
-  against the FDGT pipeline's output. Its two forwards run on scratch
+  against the FDGT pipeline's output (``nn.optimizer.Adam``, torch's
+  Adam with a step a CUDA graph can capture). Its two forwards run on scratch
   copies of the FD's BN buffers, so they leave the statistics where phase 1
   left them, as the JAX step does.
 
@@ -31,8 +32,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..models.flaw_detector import FlawDetector, flaw_detector_criterion
-from ..nn.func import sigmoid_rampup, split_tensor_tuple
-from ..nn.optimizer import set_lr
+from ..nn.func import split_tensor_tuple
+from ..nn.optimizer import Adam
 from ..ops.blur import gaussian_blur_fused as _blur
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
@@ -207,9 +208,9 @@ class SSLGCT(SSLBase):
             self.l_model.param_groups())
         self.r_opt = self.ctx.optimizers[self.r_key].make(
             self.r_model.param_groups())
-        self.fd_opt = torch.optim.Adam(self.fd_model.parameters(),
-                                       lr=self.fd_lr_schedule(0),
-                                       betas=(0.9, 0.99), eps=1e-8)
+        self.fd_opt = Adam(self.fd_model.parameters(),
+                           lr=self.fd_lr_schedule(0), betas=(0.9, 0.99),
+                           eps=1e-8)
         return {'l_opt': self.l_opt, 'r_opt': self.r_opt,
                 'fd_opt': self.fd_opt}
 
@@ -219,9 +220,6 @@ class SSLGCT(SSLBase):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = ctx.lbs
         im_size = inp[0].shape[2]
-        step = self.state.step
-        dc_rampup = sigmoid_rampup(
-            step, ctx.iters_per_epoch * max(args.dc_rampup_epochs, 0))
         metrics = {}
 
         # phase 0: no-grad pre-forwards; BN statistics update as in train()
@@ -267,14 +265,18 @@ class SSLGCT(SSLBase):
             if args.ssl_mode in (MODE_GCT, MODE_DC):
                 dc = torch.square(_nhwc(act).float() - dc_gt.float()).mean(
                     dim=(1, 2, 3))
-                dc_loss = dc_rampup * args.dc_ssl_scale * self._global_mean(dc)
+                dc_loss = self._rampup(args.dc_rampup_epochs,
+                                       args.dc_ssl_scale) * \
+                    self._global_mean(dc)
 
-            set_lr(opt, schedule(step))
+            lr = self._set_lr(opt, schedule)
             self._apply_updates(opt, task_loss + fc_loss + dc_loss,
                                 model.parameters())
             metrics[mid + '_task_loss'] = task_loss.detach()
             metrics[mid + '_fc_loss'] = fc_loss.detach()
             metrics[mid + '_dc_loss'] = dc_loss.detach()
+            if mid == 'l':
+                metrics['lr'] = lr
 
         # phase 2: flaw detector on the labeled slice
         gt_enc = ctx.task_func.sslgct_prepare_task_gt_for_fdgt(gt[0][:lbs])
@@ -291,14 +293,12 @@ class SSLGCT(SSLBase):
             flaw_detector_criterion(fm_l[:lbs], l_fdgt))
         r_fd_loss = args.fd_scale * self._global_mean(
             flaw_detector_criterion(fm_r[:lbs], r_fdgt))
-        set_lr(self.fd_opt, self.fd_lr_schedule(step))
+        self._set_lr(self.fd_opt, self.fd_lr_schedule)
         self._apply_updates(self.fd_opt, (l_fd_loss + r_fd_loss) / 2.0,
                             self.fd_model.parameters())
 
         metrics['l_fd_loss'] = l_fd_loss.detach()
         metrics['r_fd_loss'] = r_fd_loss.detach()
-        metrics['lr'] = torch.tensor(self.l_lr_schedule(step),
-                                     dtype=torch.float32)
         return metrics
 
     def _eval_fn(self, batch):

@@ -28,13 +28,12 @@ import copy
 
 import torch
 
-from ..nn.func import sigmoid_rampup, split_tensor_tuple
+from ..nn.func import split_tensor_tuple
 from ..nn.module.gaussian_noise import gaussian_noise
-from ..nn.optimizer import set_lr
 from ..utils import cmd, logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import (SSLBase, TaskContext, ema_update,
-                       forward_with_float32_params, maybe_bf16)
+from .ssl_base import (SSLBase, TaskContext, forward_with_float32_params,
+                       maybe_bf16)
 
 
 def add_parser_arguments(parser):
@@ -114,11 +113,8 @@ class SSLMT(SSLBase):
         ctx = self.ctx
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = ctx.lbs
-        step = self.state.step
         s_inp = self._noised(inp, 0)
         t_inp = self._noised(inp, 1)
-        rampup = sigmoid_rampup(
-            step, ctx.iters_per_epoch * max(args.cons_rampup_epochs, 0))
 
         # teacher: train mode (its BN statistics move), no gradient
         with torch.no_grad():
@@ -143,9 +139,10 @@ class SSLMT(SSLBase):
         else:
             cons_mse = self._global_mean(torch.square(diff.float()).mean(
                 dim=tuple(range(1, diff.dim()))))
-            cons_loss = rampup * args.cons_scale * cons_mse
+            cons_loss = self._rampup(args.cons_rampup_epochs,
+                                     args.cons_scale) * cons_mse
 
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, task_loss + cons_loss,
                             self.model.parameters())
 
@@ -156,14 +153,12 @@ class SSLMT(SSLBase):
                 split_tensor_tuple(gt, 0, lbs),
                 split_tensor_tuple(t_inp, 0, lbs)))
 
-        decay = min(1.0 - 1.0 / (step + 1.0), args.ema_decay)
-        ema_update(self.teacher.parameters(), self.model.parameters(), decay)
+        self._ema_update(self.teacher, self.model, args.ema_decay)
 
         return {'s_task_loss': task_loss.detach(),
                 'cons_loss': cons_loss.detach(),
                 't_task_loss': t_task_loss,
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+                'lr': lr}
 
     def _eval_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])

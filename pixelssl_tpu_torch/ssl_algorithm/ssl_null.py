@@ -6,9 +6,6 @@ One task model trained with the task criterion on labeled data only, SGD
 with the poly schedule; unlabeled data is refused (ssl_null.py:80-83).
 """
 
-import torch
-
-from ..nn.optimizer import set_lr
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext
@@ -58,14 +55,11 @@ class SSLNULL(SSLBase):
 
     def _step_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
-        step = self.state.step
         pred = self.model(inp)['pred']
         loss = self._global_mean(self.criterion(pred, gt, inp))
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, loss, self.model.parameters())
-        return {'task_loss': loss.detach(),
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+        return {'task_loss': loss.detach(), 'lr': lr}
 
     def _eval_fn(self, batch):
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])

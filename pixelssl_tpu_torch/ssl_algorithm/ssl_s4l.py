@@ -27,7 +27,6 @@ import torch.nn.functional as F
 
 from ..models.rotation import RotationClassifier
 from ..nn.func import split_tensor_tuple
-from ..nn.optimizer import set_lr
 from ..task_template.model import group_by_lr_rule
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
@@ -144,7 +143,6 @@ class SSLS4L(SSLBase):
         args = self.args
         lbs = self.ctx.lbs
         bs = lbs + (self.ctx.ubs or 0)
-        step = self.state.step
         inp, gt, rotation_gt = self._double_batch(tuple(batch['inp']),
                                                   tuple(batch['gt']))
 
@@ -164,15 +162,14 @@ class SSLS4L(SSLBase):
             rotation_acc = self._global_mean(
                 (pred_rotation.argmax(dim=1) == rotation_gt).float()) * 100.0
 
-        set_lr(self.opt, self.lr_schedule(step))
+        lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, unrot + rot + rotation_loss,
                             self.model.parameters())
         return {'unrotated_task_loss': unrot.detach(),
                 'rotated_task_loss': rot.detach(),
                 'rotation_loss': rotation_loss.detach(),
                 'rotation_acc': rotation_acc,
-                'lr': torch.tensor(self.lr_schedule(step),
-                                   dtype=torch.float32)}
+                'lr': lr}
 
     def _eval_fn(self, batch):
         """The task model alone: the rotation head's output is not

@@ -10,8 +10,12 @@ validation and checkpoint frequencies. The port runs on one device, the
 lr and workers are not scaled.
 
 Flags of the JAX package that the port lacks parse here, and any value but
-their default is refused with the ROADMAP item that ports them: those of
-its TPU build (A4) and ``--visualize`` (A2c).
+their default is refused with the ROADMAP item that ports them: the
+scale-out flags (A4b) and ``--visualize`` (A2c). ``--steps-per-dispatch``
+shapes the algorithm's loop (``SSLBase.train``: chunks of a dispatch),
+``--eager-ingest`` the train loader (``nn.loader``: the copy on a side
+stream); ``--profile-dir`` and ``--profile-steps`` the loop's profiler
+window (``utils.profiler``).
 """
 
 import copy
@@ -31,10 +35,8 @@ from ..utils import device as device_util
 # (flag, its default, the ROADMAP item that ports it): any value but the
 # default is refused
 _UNPORTED_FLAGS = (
-    ('steps_per_dispatch', 1, 'A4'), ('eager_ingest', False, 'A4'),
-    ('spatial_val', False, 'A4'), ('spatial_train', 0, 'A4'),
-    ('distributed', False, 'A4'), ('profile_dir', '', 'A4'),
-    ('profile_steps', 10, 'A4'), ('visualize', False, 'A2c'))
+    ('spatial_val', False, 'A4b'), ('spatial_train', 0, 'A4b'),
+    ('distributed', False, 'A4b'), ('visualize', False, 'A2c'))
 
 _CHECKPOINT_RE = re.compile(r'^checkpoint_(\d+)\.pth$')
 
@@ -54,19 +56,19 @@ def add_parser_arguments(parser):
     parser.add_argument('--visual-freq', type=int, default=100, metavar='', help='exp - visualization frequency [iteration]')
     parser.add_argument('--checkpoint-freq', type=int, default=1, metavar='', help='exp - checkpoint frequency [epoch]')
     parser.add_argument('--seed', type=int, default=0, metavar='', help='exp - global random seed')
-    parser.add_argument('--steps-per-dispatch', type=int, default=1, metavar='', help='exp - train steps a dispatch (ROADMAP A4)')
-    parser.add_argument('--eager-ingest', type=cmd.str2bool, default=False, metavar='', help='exp - materialise each batch in the loader (ROADMAP A4)')
-    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - split validation images over devices (ROADMAP A4)')
-    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split train images over devices (ROADMAP A4)')
-    parser.add_argument('--profile-dir', type=str, default='', metavar='', help='exp - profile train steps into this directory (ROADMAP A4)')
-    parser.add_argument('--profile-steps', type=int, default=10, metavar='', help='exp - steps captured by --profile-dir (ROADMAP A4)')
+    parser.add_argument('--steps-per-dispatch', type=int, default=1, metavar='', help='exp - train steps a dispatch: on the card one CUDA graph of the step, replayed once a step')
+    parser.add_argument('--eager-ingest', type=cmd.str2bool, default=False, metavar='', help='exp - copy each train batch to the card in a loader thread, on a side stream')
+    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - split validation images over devices (ROADMAP A4b)')
+    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split train images over devices (ROADMAP A4b)')
+    parser.add_argument('--profile-dir', type=str, default='', metavar='', help='exp - trace train steps [1, 1 + profile-steps] of epoch 0 into this directory (torch.profiler, Chrome trace)')
+    parser.add_argument('--profile-steps', type=int, default=10, metavar='', help='exp - steps (or dispatches) traced by --profile-dir')
     parser.add_argument('--exact-val', type=cmd.str2bool, default=False, metavar='',
                         help='exp - the reference validation protocol: batch 1, '
                              'the image unpadded (reference proxy.py:402-403)')
     parser.add_argument('--auto-resume', type=cmd.str2bool, default=False, metavar='',
                         help='exp - resume from the newest checkpoint_<epoch>.pth '
                              'of the experiment, if there is one')
-    parser.add_argument('--distributed', type=cmd.str2bool, default=False, metavar='', help='exp - multi-process run (ROADMAP A4)')
+    parser.add_argument('--distributed', type=cmd.str2bool, default=False, metavar='', help='exp - multi-process run (ROADMAP A4b)')
 
     # dataset / data loader
     parser.add_argument('--trainset', type=cmd.strdict, default={}, metavar='', help='data - {dataset_type: [paths]}')
@@ -297,7 +299,8 @@ class TaskProxy(object):
                         seed=args.seed)
                 self.train_loader = nnloader.DataLoader(
                     trainset, sampler, self.device,
-                    num_workers=args.num_workers)
+                    num_workers=args.num_workers,
+                    eager_ingest=args.eager_ingest)
 
         valset_num = sum(len(v) for v in args.valset.values())
         valset = None

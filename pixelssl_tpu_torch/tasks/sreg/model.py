@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...models.layers import SyncBatchNorm, resize_bilinear
+from ...models.layers import SyncBatchNorm, bf16_autocast, resize_bilinear
 from ...task_template import model_template
 from ...utils import cmd
 
@@ -93,8 +93,7 @@ class UNetLite(nn.Module):
                 m.reset_parameters()
 
     def _amp(self, x):
-        return torch.autocast(x.device.type, dtype=torch.bfloat16,
-                              enabled=self.bf16)
+        return bf16_autocast(x, self.bf16)
 
     def forward(self, x):
         b = self.blocks

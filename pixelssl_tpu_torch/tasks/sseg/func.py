@@ -10,6 +10,8 @@ counts cross to the host. ``device_prep`` normalises ``--u8-transfer``
 batches on the card.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -23,6 +25,16 @@ def task_func():
     return SemanticSegmentationFunc
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device):
+    """``data.VOC_MEAN`` and ``VOC_STD`` as [3,1,1] float32 tensors on
+    ``device``, copied there once: a captured step copies nothing from the
+    host."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)[:, None,
+                                                                      None]
+                 for v in (data.VOC_MEAN, data.VOC_STD))
+
+
 class SemanticSegmentationFunc(func_template.TaskFunc):
     def device_prep(self, batch):
         """The ``--u8-transfer`` batch made what the algorithms take (JAX
@@ -32,8 +44,7 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
         inp, gt = batch['inp'], batch['gt']
         x = inp[0]
         if x.dtype == torch.uint8:
-            mean = torch.tensor(data.VOC_MEAN, device=x.device)[:, None, None]
-            std = torch.tensor(data.VOC_STD, device=x.device)[:, None, None]
+            mean, std = _mean_std(x.device)
             inp = ((x.float() / 255.0 - mean) / std,) + tuple(inp[1:])
         g = gt[0]
         if g.dtype in (torch.uint8, torch.int8, torch.int16):
