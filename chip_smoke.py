@@ -15,9 +15,11 @@ Phases, each printing a line as it ends:
    augmentation of the VOC path) with ``g++``;
 3. holds the blur kernel against its plain PyTorch version in float32 at
    the three shapes of phase 5's GCT step at 321 px, the three of phase
-   11's, the three of phase 19's PSPNet GCT script at 513 px and the three
-   of phase 23's sreg demo at 64 px (each derived from its script's batch
-   and size), a non-square map, a
+   11's, the three of phase 19's PSPNet GCT script at 513 px, the three
+   of phase 23's sreg demo at 64 px and the three of the 1-8 GCT script's
+   debug visualization (phase 32: the whole batch, [4,321,321] at k=21, 41
+   and 81; each derived from its script's batch and size), a non-square
+   map, a
    map smaller than half the kernel (repeated reflection), the 513 px
    recipe's widest blur, a map one past the kernel's tiles, and kernels
    past 129 taps: [2,640,640] k=161, [1,1025,1025] k=257, [2,40,48] k=129
@@ -204,9 +206,34 @@ Phases, each printing a line as it ends:
 31. ``scripts/rescore.py`` of the port on the fixture tree: a
     reference-layout checkpoint written from the port's random weights,
     rescored; its mIoU equal to the port's own validation of the same
-    weights (atol 1e-4), ``pretrained/<exp_id>.pth`` written.
+    weights (atol 1e-4), ``pretrained/<exp_id>.pth`` written;
+32. ``--visualize`` through ``run_script`` at full width: the 1-8 GCT
+    script's config (2+2 @321) with ``--visual-freq 2``, eagerly (3
+    iterations) and at ``--steps-per-dispatch 4`` (8 iterations, two
+    dispatches), and the 1-8 AdvSSL script's eagerly: the PNG names of the
+    three folders equal those the JAX package writes for the config (built
+    from its naming rules), each PNG read back by the port's reader equal
+    to the array written at 321 px, the blur kernel launched 6 times a
+    step and 6 more a visualized GCT step, ``state.step``; a
+    visualization's wall ms beside an eager step's;
+33. ``--distributed`` at world size 1 over NCCL: the 1-8 GCT script's
+    config (2+2 @321) eagerly (3 iterations) and at ``--steps-per-dispatch
+    4`` (8; the NCCL all-reduces inside the CUDA graph), in a process under
+    ``python -m torch.distributed.run --standalone --nproc-per-node 1``
+    against the same without ``--distributed`` in a plain process, cuDNN
+    deterministic in both: the first (eager) step's losses equal (rtol
+    1e-6), the lr of every record, the blur launches and ``state.step``
+    equal; each run's ms a step (eager steps and replays on a batch of the
+    run), the NCCL kernels' share of the step's kernel time
+    (``torch.profiler``) and the host's cost of an all-reduce;
+34. two ranks sharing the card over gloo (``--nproc-per-node 2``), each on
+    half of the global batch, against one process on the whole batch:
+    SupOnly 4+0 and MT 4+4 at ResNet-10 @64 in float32, a validation of 4
+    samples on the starting weights (scores rtol 1e-6), then two steps:
+    losses rtol 1e-4 (atol 1e-5), parameters and BN statistics atol 1e-5
+    with rtol 1e-4.
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25 and 26 print their step
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26 and 33 print their step
 times and peak memory (the harness phases also the peak over the steps after the first, which
 leaves out cuDNN's autotuning of new shapes), and the run its total wall
 time and each phase's.
@@ -215,7 +242,10 @@ Then one JSON line with the kernel's numbers, and as the last line
 result; so does a host without CUDA or a directory without the port. It
 writes nothing but the kernel build under ``pixelssl_tpu_torch/build/``, and
 the checkpoints and run directories in temporary directories that it
-removes, and the augmentation library under the same directory.
+removes, and the augmentation library under the same directory. The
+processes of phases 33 and 34 run this script again (``--worker``), each
+with a time limit, killed with every process it started past it; a
+failing one fails its phase.
 """
 
 import argparse
@@ -336,12 +366,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/31] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/34] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/31] host for the VOC input path: ' + '  '.join(
+    say('[1/34] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/31] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/34] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -389,11 +419,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/31] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/34] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/31] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/34] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -408,7 +438,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/31] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/34] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -438,7 +468,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/31] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/34] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -481,7 +511,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/31] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/34] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -576,9 +606,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/31]', 'GCT')
+    algo, batch = build_full_width(args, '[5/34]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/31]', 'GCT',
+        algo, batch, steps, '[5/34]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -642,7 +672,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/31] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/34] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -654,7 +684,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/31] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/34] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -707,16 +737,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/31]', 'MT')
+    algo, batch = build_full_width(args, '[7/34]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/31]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/34]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/31]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/34]', 'MT')
     return algo
 
 
@@ -724,8 +754,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/31]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/31]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/34]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/34]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -756,7 +786,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/31] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/34] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -784,7 +814,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/31] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/34] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -951,7 +981,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/31]'
+    tag = '[10/34]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -1087,7 +1117,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/31]'
+    tag = '[11/34]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1210,7 +1240,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/31]', what, args, seed, steps)
+        small_card_vs_cpu('[12/34]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1276,7 +1306,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/31] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/34] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1295,9 +1325,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/31]', what)
+        algo, batch = build_full_width(args, '[13/34]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/31]', what, positive)
+            algo, batch, steps, '[13/34]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1311,7 +1341,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/31] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/34] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1320,7 +1350,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/31]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/34]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1411,7 +1441,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/31]', algo, full_width_args(
+                '[14/34]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1423,7 +1453,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/31]'
+    tag = '[15/34]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1468,7 +1498,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/31]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/34]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1508,7 +1538,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/31] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/34] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1531,15 +1561,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/31]', what)
+        algo, batch = build_full_width(args, '[17/34]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/31] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/34] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/31]', what, positive)
+            algo, batch, steps, '[17/34]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1548,7 +1578,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/31] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/34] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1557,7 +1587,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/31]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/34]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1571,7 +1601,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/31]', algos['ssl_cct'], full_width_args(
+            '[18/34]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1583,7 +1613,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/31]'
+    tag = '[19/34]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1874,7 +1904,7 @@ def phase_sreg():
     from pixelssl_tpu_torch.tasks import sreg
     from pixelssl_tpu_torch.utils import logger
 
-    tag = '[23/31]'
+    tag = '[23/34]'
     demo = load_sreg_demo()
     gct_launches = None
     for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
@@ -1972,7 +2002,7 @@ def phase_optimizers(seed, steps):
     import torch
     from pixelssl_tpu_torch import harness
 
-    tag = '[24/31]'
+    tag = '[24/34]'
     for name, flags in OPTIMIZER_CASES:
         args = harness.default_args('ssl_mt', **dict(
             MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
@@ -2072,7 +2102,7 @@ def f32_steps(seed, steps, **flags):
                                unlabeled_batch_size=4,
                                **dict(MT_CONFIG, bf16=False, **flags))
         algo, batch = build_full_width(
-            args, '[25/31]', 'MT float32 ' + (' '.join(sorted(flags)) or
+            args, '[25/34]', 'MT float32 ' + (' '.join(sorted(flags)) or
                                               'plain'))
         losses, stats = [], None
         for s in range(steps):
@@ -2106,7 +2136,7 @@ def phase_sseg_flags(seed, steps):
     import torch
     from pixelssl_tpu_torch.models.resnet import resnet101
 
-    tag = '[25/31]'
+    tag = '[25/34]'
     runs = {}
     for label, flags in (('plain', {}), ('remat', dict(remat=True)),
                          ('bf16_opt_state', dict(bf16_opt_state=True)),
@@ -2460,7 +2490,7 @@ def phase_multi_step(seed):
     from pixelssl_tpu_torch.bench import restore, snapshot
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[26/31]'
+    tag = '[26/34]'
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
@@ -2706,7 +2736,7 @@ def phase_profile_dir():
     import glob
     import tempfile
 
-    tag = '[27/31]'
+    tag = '[27/34]'
     with tempfile.TemporaryDirectory() as out:
         prof_dir = os.path.join(out, 'prof')
         config = script_config(SCRIPT_MT, out, 'ssl_mt', PROFILE_SAMPLES)
@@ -2759,7 +2789,7 @@ def phase_eager_ingest():
     80GB HBM3. Each graph run passes ``script_graph_checks``."""
     import tempfile
 
-    tag = '[28/31]'
+    tag = '[28/34]'
     runs = {}
     for label, eager, n in INGEST_RUNS:
         with tempfile.TemporaryDirectory() as out:
@@ -2803,7 +2833,7 @@ def phase_bench():
 
     from pixelssl_tpu_torch import bench
 
-    tag = '[29/31]'
+    tag = '[29/34]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(['--steps', '8', '--calls', '3', '--cudnn-benchmark'])
@@ -2832,7 +2862,7 @@ def phase_serving():
 
     from pixelssl_tpu_torch.tools import export_serving, infer_bench
 
-    tag = '[30/31]'
+    tag = '[30/34]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         infer_bench.main(['--model', 'deeplabv2', '--backbone', 'resnet101',
@@ -2892,7 +2922,7 @@ def phase_rescore(seed):
     from pixelssl_tpu_torch.scripts import rescore as rescore_mod
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[31/31]'
+    tag = '[31/34]'
     script = 'deeplabv2_pascalvoc_1-8_suponly.py'
     root = os.path.abspath(VOC_FIXTURE)
     args = full_width_args('ssl_null', seed, batch_size=4,
@@ -2938,9 +2968,554 @@ def phase_rescore(seed):
                                                          own_scores))
 
 
+# ---------------------------------------------------------------------------
+# phases 32-34: --visualize, --distributed at world size 1 over NCCL, and two
+# gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+VISUAL_FREQ = 2
+VIS_SAMPLES = {1: 12, MULTI_N: 32}  # 3 iterations eager; 8 (two dispatches)
+WORKER_TIMEOUT = 600
+GCT_DEBUG = ('l-fmap', 'l-fmap-gt', 'l-pseudo-gt', 'r-fmap', 'r-fmap-gt',
+             'r-pseudo-gt')
+PANELS = ('1-inp', '2-pred', '3-gt')
+
+
+def debug_blur_cases(batch_size, im_size):
+    """(N, H, W, k) of the blur calls of GCT's debug visualization, each
+    twice (l and r): ``flawmap_handler`` and ``fdgt_generator`` on the
+    whole batch, k=odd(im/16), odd(im/8), odd(im/4)."""
+    return gct_blur_cases(batch_size, 0, im_size)
+
+
+def script_debug_blur_cases(script):
+    config = load_script_config(script)
+    return debug_blur_cases(config['batch_size'], config['im_size'])
+
+
+@contextlib.contextmanager
+def recorded_pngs():
+    """Every array ``nn.imageio.write_png`` writes while the block runs,
+    by path."""
+    import numpy as np
+    from pixelssl_tpu_torch.nn import imageio
+
+    written = {}
+    write = imageio.write_png
+
+    def record(path, img):
+        written[os.path.abspath(path)] = np.array(img, copy=True)
+        return write(path, img)
+
+    imageio.write_png = record
+    try:
+        yield written
+    finally:
+        imageio.write_png = write
+
+
+def expected_pngs(n_iters, n, freq, n_val, model_ids, debug):
+    """The PNG names the JAX package writes for one epoch of ``n_iters``
+    iterations at ``--steps-per-dispatch`` ``n`` and ``--visual-freq``
+    ``freq`` with ``n_val`` exact validation batches, by folder: its
+    ``train`` names ``<epoch>_<idx>`` each iteration idx % freq == 0,
+    its ``_train_multi`` ``<epoch>_<done>`` each dispatch whose ``done``
+    passes a multiple of ``freq`` (the tail's steps none), its
+    ``validate`` ``<epoch>_<idx>`` each batch idx % freq == 0; for each,
+    ``_<model id><panel>.png`` of every model and the algorithm's
+    ``_debug_visualize`` maps (JAX ssl_base.py:246-264,355-368,417-426,
+    ssl_gct.py:458-468, ssl_adv.py:266-270)."""
+    if n == 1:
+        names = [i for i in range(n_iters) if i % freq == 0]
+    else:
+        names = [done for done in range(n, n_iters - n_iters % n + 1, n)
+                 if done % freq < n]
+    train = set()
+    for i in names:
+        for mid in model_ids:
+            train.update('0_{0}_{1}{2}.png'.format(i, mid, p) for p in PANELS)
+        train.update('0_{0}_{1}.png'.format(i, d) for d in debug)
+    val = {'0_{0}_{1}{2}.png'.format(b, mid, p)
+           for b in range(n_val) if b % freq == 0
+           for mid in model_ids for p in PANELS}
+    return {'debug': set(), 'train': train, 'val': val}
+
+
+def check_pngs(tag, what, proxy, written, expected, size):
+    """The folders hold ``expected``'s names; each PNG read back by the
+    port's reader equals the array written, [size, size, 3] or [size,
+    size]."""
+    from pixelssl_tpu_torch.nn import imageio
+
+    args = proxy.args
+    found = {sub: set(os.listdir(getattr(args, 'visual_{0}_path'.format(
+        sub)))) for sub in ('debug', 'train', 'val')}
+    if found != expected:
+        raise AssertionError('{0}: PNG names differ from the JAX package\'s: '
+                             'missing {1}, extra {2}'.format(
+                                 what, {k: sorted(expected[k] - found[k])
+                                        for k in found},
+                                 {k: sorted(found[k] - expected[k])
+                                  for k in found}))
+    n_files = 0
+    for sub in ('train', 'val'):
+        folder = getattr(args, 'visual_{0}_path'.format(sub))
+        for name in found[sub]:
+            path = os.path.abspath(os.path.join(folder, name))
+            back = imageio.read_png(path)
+            if path not in written or back.shape[:2] != (size, size) or \
+                    not (back == written[path]).all():
+                raise AssertionError('{0}: {1} does not read back as '
+                                     'written'.format(what, path))
+            n_files += 1
+    say('{0} {1}: {2} PNGs, the JAX package\'s names ({3} train, {4} val), '
+        'each read back equal to the array written, {5} px'.format(
+            tag, what, n_files, len(found['train']), len(found['val']),
+            size))
+
+
+def visualize_cost_ms(algo, batch, reps=3):
+    """Wall ms of one ``_visualize`` (the eval forwards, the debug maps,
+    the PNGs) and of one eager ``train_step`` on ``batch``, medians of
+    ``reps``; the card synchronised around each."""
+    import statistics
+    import torch
+
+    def wall(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    return (wall(lambda: algo._visualize(batch, 'timing')),
+            wall(lambda: algo.train_step(batch)))
+
+
+def phase_visualize():
+    """``--visualize`` through ``run_script``: the 1-8 GCT script's config
+    at 2+2 @321 with ``--visual-freq 2``, eagerly (3 iterations) and at
+    ``--steps-per-dispatch 4`` (8 iterations, two dispatches), and the
+    1-8 AdvSSL script's eagerly. Returns the GCT runs' blur launches."""
+    import tempfile
+    from pixelssl_tpu_torch.ops import blur
+
+    tag = '[32/34]'
+    launches = {}
+    for algo_name, script, n, model_ids, debug in (
+            ('ssl_gct', SCRIPT_GCT, 1, ('l', 'r'), GCT_DEBUG),
+            ('ssl_gct', SCRIPT_GCT, MULTI_N, ('l', 'r'), GCT_DEBUG),
+            ('ssl_adv', SCRIPT_ADV, 1, ('ssl_adv',),
+             ('labeled-cmap', 'unlabeled-cmap'))):
+        what = '{0} --visualize at --steps-per-dispatch {1}'.format(
+            algo_name, n)
+        with tempfile.TemporaryDirectory() as out:
+            config = script_config(script, out, algo_name,
+                                   samples=VIS_SAMPLES[n])
+            config.update(visualize=True, visual_freq=VISUAL_FREQ,
+                          steps_per_dispatch=n)
+            with recorded_pngs() as written:
+                _, proxy, _, count = run_script_phase(tag, script, algo_name,
+                                                      out, config)
+            algo = proxy.ssl_algorithm
+            iters = len(proxy.train_loader)
+            expected = expected_pngs(iters, n, VISUAL_FREQ,
+                                     len(proxy.val_loader), model_ids, debug)
+            check_pngs(tag, what, proxy, written, expected,
+                       config['im_size'])
+            visualized = len({name.split('_')[1]
+                              for name in expected['train']})
+            per_step = BLUR_LAUNCHES_PER_STEP if algo_name == 'ssl_gct' else 0
+            want = per_step * (iters + visualized)
+            if count != want or algo.state.step != iters:
+                raise AssertionError('{0}: blur launches {1}, state.step {2};'
+                                     ' expected {3}, {4}'.format(
+                                         what, count, algo.state.step, want,
+                                         iters))
+            if n > 1 and algo._captured is None:
+                raise AssertionError(what + ': no captured step')
+            vis_ms, step_ms = visualize_cost_ms(
+                algo, next(iter(proxy.train_loader)))
+            say('{0} {1}: {2} iterations, {3} visualized; blur launches {4} '
+                '= {5} x ({2} + {3}); a visualization costs {6:.1f} ms of '
+                'wall time (eval forwards, debug maps, PNGs), an eager train '
+                'step {7:.1f} ms'.format(tag, what, iters, visualized, count,
+                                         per_step, vis_ms, step_ms))
+            if algo_name == 'ssl_gct':
+                launches[n] = count
+            del proxy, algo
+        no_workers_left(tag)
+    blur.launches = 0
+    return launches
+
+
+def run_bounded(tag, cmd, timeout=WORKER_TIMEOUT):
+    """``cmd`` in a session of its own, killed with every process it
+    started if it outlives ``timeout`` s; its output's tail printed and a
+    failure raised if it exits with another code than 0."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError('{0} {1} outlived {2} s'.format(
+            tag, ' '.join(cmd[-6:]), timeout))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode != 0:
+        say('\n'.join(out.splitlines()[-60:]))
+        raise AssertionError('{0} {1} exited with {2}'.format(
+            tag, ' '.join(cmd[-6:]), proc.returncode))
+    return time.perf_counter() - t0
+
+
+def torchrun(n_proc):
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            '--nproc-per-node', str(n_proc)]
+
+
+def worker_gct(out, distributed):
+    """One process of phase 33: the 1-8 GCT script's config through
+    ``run_script`` at ``--steps-per-dispatch`` 1 (12 samples, 3
+    iterations) and 4 (32 samples, 8), with ``--distributed`` or not, cuDNN deterministic, the
+    first (eager) step's losses watched; then eager steps and replays
+    timed on a batch of the run, and one of each under ``torch.profiler``,
+    its NCCL kernels' share. Writes ``result.json`` into ``out``."""
+    import statistics
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.tasks import sseg
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    result = {}
+    for n in (1, MULTI_N):
+        run_out = os.path.join(out, 'run{0}'.format(n))
+        os.makedirs(run_out)
+        config = script_config(SCRIPT_GCT, run_out, 'ssl_gct',
+                               samples=VIS_SAMPLES[n])
+        config.update(steps_per_dispatch=n, distributed=distributed)
+        blur.launches = 0
+        with watched_steps() as seen:
+            proxy = pixelssl_tpu_torch.run_script(
+                config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+                cli_override=False)
+        torch.cuda.synchronize()
+        algo = proxy.ssl_algorithm
+        row = {'launches': blur.launches, 'step': algo.state.step,
+               'first': seen['eager'][0],
+               'iters': len(proxy.train_loader),
+               'captured': algo._captured is not None,
+               'world_size': algo.mesh.world_size,
+               'distributed': algo.mesh.distributed,
+               'device': str(algo.device),
+               'train': [r for r in read_records(config)
+                         if r['phase'] == 'train']}
+        batch = next(iter(proxy.train_loader))
+        if n == 1:
+            def one():
+                algo.train_step(batch)
+        else:
+            def one():
+                algo.train_steps([batch] * n)
+        times = []
+        for _ in range(WORKER_TIMED + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        row['step_ms'] = times
+        row['median_step_ms'] = statistics.median(times[1:])
+        events = profile_kernels(one)
+        total = sum(e.self_device_time_total for e in events) / 1e3
+        nccl = [e for e in events if 'nccl' in e.key.lower()]
+        row['kernel_ms'] = total / n
+        row['nccl_ms'] = sum(e.self_device_time_total for e in nccl) / 1e3 / n
+        row['nccl_launches'] = sum(e.count for e in nccl) / n
+        row['nccl_kernels'] = sorted({e.key[:60] for e in nccl})
+        result[str(n)] = row
+        del proxy, algo
+    if distributed:
+        # the host's cost of one all-reduce, of 2 floats (a global mean)
+        # and of a task model's gradients
+        for numel in (2, 44 * 2 ** 20):
+            x = torch.ones(numel, device='cuda')
+            for _ in range(5):
+                torch.distributed.all_reduce(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                torch.distributed.all_reduce(x)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            result['all_reduce_us_{0}'.format(numel)] = [
+                1e6 * host / 50, 1e6 * (time.perf_counter() - t0) / 50]
+    if not distributed or torch.distributed.get_rank() == 0:
+        with open(os.path.join(out, 'result.json'), 'w') as f:
+            json.dump(result, f)
+
+
+def relative_gap(a, b, keys):
+    """The largest relative difference of ``a[k]`` from ``b[k]``."""
+    return max([abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in keys] or
+               [0.0])
+
+
+def phase_distributed():
+    """``--distributed`` at world size 1 over NCCL against the plain run,
+    each a process of ``worker_gct``: the distributed one under ``python
+    -m torch.distributed.run --standalone --nproc-per-node 1``. Returns
+    the distributed run's blur launches."""
+    import tempfile
+
+    tag = '[33/34]'
+    here = os.path.abspath(__file__)
+    runs = {}
+    for name, cmd in (
+            ('plain', [sys.executable, here]),
+            ('distributed', torchrun(1) + [here])):
+        with tempfile.TemporaryDirectory() as out:
+            wall = run_bounded(tag, cmd + ['--worker', 'gct', '--out', out] +
+                               (['--distributed'] if name == 'distributed'
+                                else []))
+            with open(os.path.join(out, 'result.json')) as f:
+                runs[name] = json.load(f)
+        say('{0} {1} run: a process, {2:.1f} s'.format(tag, name, wall))
+    launches = 0
+    for n in ('1', str(MULTI_N)):
+        plain, dist = runs['plain'][n], runs['distributed'][n]
+        what = 'GCT script @321 2+2, --steps-per-dispatch {0}'.format(n)
+        if not (dist['distributed'] and dist['world_size'] == 1 and
+                not plain['distributed'] and dist['device'] == 'cuda:0'):
+            raise AssertionError('{0}: the runs were not what was asked: '
+                                 '{1} / {2}'.format(what, plain, dist))
+        for key in ('launches', 'step', 'captured', 'iters'):
+            if plain[key] != dist[key]:
+                raise AssertionError('{0}: {1} {2} distributed, {3} '
+                                     'plain'.format(what, key, dist[key],
+                                                    plain[key]))
+        if plain['launches'] != BLUR_LAUNCHES_PER_STEP * plain['step'] or \
+                plain['captured'] != (n != '1'):
+            raise AssertionError('{0}: {1}'.format(what, plain))
+        first = relative_gap(dist['first'], plain['first'], plain['first'])
+        later = {'task/fd': 0.0, 'fc/dc': 0.0}
+        for s, (a, b) in enumerate(zip(dist['train'], plain['train'])):
+            if a['lr'] != b['lr'] or a['iter'] != b['iter']:
+                raise AssertionError('{0}: record {1} lr/iter {2} vs '
+                                     '{3}'.format(what, s, a, b))
+            losses = [k for k in b if k.endswith('_loss')]
+            later['task/fd'] = max(later['task/fd'], relative_gap(a, b, [
+                k for k in losses if 'task' in k or 'fd' in k]))
+            later['fc/dc'] = max(later['fc/dc'], relative_gap(a, b, [
+                k for k in losses if 'fc' in k or 'dc' in k]))
+        if not first <= DIST_FIRST_RTOL:
+            raise AssertionError('{0}: the first step\'s losses differ by '
+                                 '{1} (rtol {2})'.format(
+                                     what, first, DIST_FIRST_RTOL))
+        say('{0} {1}: {2} iterations, blur launches {3} on both; the first '
+            'step\'s losses equal (largest relative gap {4:.3g}); the '
+            'records\' largest relative gaps: task and FD losses {5:.3g}, '
+            'the thresholded fc/dc {6:.3g}; lr equal on every record'.format(
+                tag, what, dist['iters'], dist['launches'], first,
+                later['task/fd'], later['fc/dc']))
+        say('{0} {1}: ms a step, plain {2:.3f} (median of {3}), '
+            'distributed {4:.3f} (median of {5}), ratio {6:.4f}; kernel time '
+            'a step plain {7:.3f} ms, distributed {8:.3f} ms, of it NCCL '
+            '{9:.4f} ms in {10:g} launches ({11:.3f}% of the distributed '
+            'step\'s kernel time): {12}'.format(
+                tag, what, plain['median_step_ms'],
+                ' '.join('{0:.3f}'.format(t) for t in plain['step_ms'][1:]),
+                dist['median_step_ms'],
+                ' '.join('{0:.3f}'.format(t) for t in dist['step_ms'][1:]),
+                dist['median_step_ms'] / plain['median_step_ms'],
+                plain['kernel_ms'], dist['kernel_ms'], dist['nccl_ms'],
+                dist['nccl_launches'],
+                100.0 * dist['nccl_ms'] / max(dist['kernel_ms'], 1e-9),
+                ', '.join(dist['nccl_kernels']) or 'none seen'))
+        launches += dist['launches']
+    say('{0} host us an all-reduce (to return; to its end): {1}'.format(
+        tag, '  '.join('{0} floats {1:.1f}; {2:.1f}'.format(
+            k.rsplit('_', 1)[1], *v) for k, v in sorted(
+                runs['distributed'].items()) if k.startswith('all_reduce'))))
+    return launches
+
+
+DIST_FIRST_RTOL = 1e-6
+WORKER_TIMED = 6
+GLOO_CASES = (('ssl_null', dict(NULL_CONFIG, batch_size=4,
+                                unlabeled_batch_size=0)),
+              ('ssl_mt', dict(MT_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                              ignore_unlabeled=False)))
+GLOO_STEPS = 2
+GLOO_VAL_SAMPLES = 4
+
+
+def gloo_global_batch(args, seed):
+    """A global two-stream batch (numpy NHWC images, [N,H,W] labels)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, s = args.batch_size, args.im_size
+    images = rng.standard_normal((b, s, s, 3)).astype(np.float32)
+    labels = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
+    labels[args.labeled_batch_size:] = -1
+    return images, labels
+
+
+class ListDataset(object):
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+
+def gloo_val_samples(args, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    s = args.im_size
+    return [((rng.standard_normal((s, s, 3)).astype(np.float32),),
+             (rng.integers(0, args.num_classes, (s, s)).astype(np.int32),))
+            for _ in range(GLOO_VAL_SAMPLES)]
+
+
+def gloo_case(algo_name, config, seed, rank=0, world=1):
+    """Build ``algo_name`` at ResNet-10 @64 in float32 on the card,
+    validate its share of the samples, then take ``GLOO_STEPS`` steps on
+    rank ``rank``'s slice of the global batch; (losses a step, state dicts
+    on the host, val scores)."""
+    import torch
+    from pixelssl_tpu_torch import harness, parallel
+    from pixelssl_tpu_torch.task_template.proxy import _ValLoader
+
+    args = harness.default_args(algo_name, **dict(config, seed=seed,
+                                                  **SMALL))
+    algo = harness.build_algorithm(args, device='cuda:0', iters_per_epoch=2)
+    images, labels = gloo_global_batch(args, seed)
+    lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
+    if world > 1:
+        n = (lbs + ubs) // world
+        if ubs:
+            images = parallel.reorder_two_stream(images, lbs, ubs, world)
+            labels = parallel.reorder_two_stream(labels, lbs, ubs, world)
+        images = images[rank * n:(rank + 1) * n]
+        labels = labels[rank * n:(rank + 1) * n]
+    batch = harness._to_batch(images, labels, 'cuda:0')
+    # validated first, on the weights every rank starts from
+    val = algo.validate(_ValLoader(ListDataset(gloo_val_samples(args, seed)),
+                                   'cuda:0', mesh=algo.mesh), 0)
+    losses = [loss_values(algo.train_step(batch)) for _ in range(GLOO_STEPS)]
+    states = {k: {n: t.detach().cpu() for n, t in m.state_dict().items()}
+              for k, m in algo.modules.items()}
+    return losses, states, {k: float(v) for k, v in val.items()}
+
+
+def worker_gloo(out, seed):
+    """One of phase 34's two ranks: a gloo group from ``torchrun``'s
+    environment, both ranks on card 0, ``gloo_case`` for each of
+    ``GLOO_CASES``; writes ``rank<r>.pt`` into ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group('gloo')
+    rank, world = dist.get_rank(), dist.get_world_size()
+    result = {name: gloo_case(name, config, seed, rank, world)
+              for name, config in GLOO_CASES}
+    torch.save(result, os.path.join(out, 'rank{0}.pt'.format(rank)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_gloo(seed):
+    """Two ranks sharing the card over gloo (``python -m
+    torch.distributed.run --standalone --nproc-per-node 2``), each on half
+    of the global batch, against one process on the whole batch: SupOnly
+    4+0 and MT 4+4 at ResNet-10 @64 in float32, a validation of
+    ``GLOO_VAL_SAMPLES`` samples and ``GLOO_STEPS`` steps. Losses rtol 1e-4 (atol
+    1e-5), parameters and BN statistics atol 1e-5 with rtol 1e-4 (the
+    CPU test's limits), val scores rtol 1e-6."""
+    import tempfile
+    import numpy as np
+    import torch
+
+    tag = '[34/34]'
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            wall = run_bounded(tag, torchrun(2) + [
+                os.path.abspath(__file__), '--worker', 'gloo', '--out', out,
+                '--seed', str(seed)])
+            ranks = [torch.load(os.path.join(out, 'rank{0}.pt'.format(r)),
+                                weights_only=False) for r in range(2)]
+        for name, config in GLOO_CASES:
+            losses, states, val = gloo_case(name, config, seed)
+            worst = {'loss': 0.0, 'param': 0.0}
+            for rank, result in enumerate(ranks):
+                r_losses, r_states, r_val = result[name]
+                for s, (a, b) in enumerate(zip(r_losses, losses)):
+                    for k in b:
+                        worst['loss'] = max(worst['loss'], abs(a[k] - b[k]))
+                        if not math.isclose(a[k], b[k], rel_tol=1e-4,
+                                            abs_tol=1e-5):
+                            raise AssertionError('{0} rank {1} step {2} {3}: '
+                                                 '{4} vs {5}'.format(
+                                                     name, rank, s, k, a[k],
+                                                     b[k]))
+                for key, state in states.items():
+                    for pname, value in state.items():
+                        if pname.endswith('num_batches_tracked'):
+                            continue
+                        got = r_states[key][pname].float().numpy()
+                        want = value.float().numpy()
+                        worst['param'] = max(worst['param'], float(
+                            np.abs(got - want).max()))
+                        if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+                            raise AssertionError('{0} rank {1} {2}.{3} '
+                                                 'differs'.format(
+                                                     name, rank, key, pname))
+                if set(r_val) != set(val) or not all(
+                        math.isclose(r_val[k], v, rel_tol=1e-6)
+                        for k, v in val.items()):
+                    raise AssertionError('{0} rank {1} val {2} vs {3}'.format(
+                        name, rank, r_val, val))
+            say('{0} {1}: 2 gloo ranks on the card ({2:.1f} s) equal one '
+                'process on the whole batch: {3} steps, largest loss gap '
+                '{4:.3g}, largest parameter gap {5:.3g}; val {6}'.format(
+                    tag, name, wall, GLOO_STEPS, worst['loss'],
+                    worst['param'], '  '.join(
+                        '{0} {1:.5f}'.format(k, v)
+                        for k, v in sorted(val.items()) if 'mIoU' in k)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
+    # the processes that phases 33 and 34 start run this script again
+    parser.add_argument('--worker', choices=('gct', 'gloo'),
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--out', help=argparse.SUPPRESS)
+    parser.add_argument('--distributed', action='store_true',
+                        help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
 
     try:
@@ -2964,6 +3539,12 @@ def main(argv=None):
     # float32 matmuls); the convolutions run in bf16 under autocast
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.worker == 'gct':
+        worker_gct(opts.out, opts.distributed)
+        return 0
+    if opts.worker == 'gloo':
+        worker_gloo(opts.out, opts.seed)
+        return 0
     torch.backends.cudnn.benchmark = True
 
     t_start = time.perf_counter()
@@ -2981,7 +3562,8 @@ def main(argv=None):
         rows, floor_ms = run('3', phase_kernel, opts.seed, {
             'script_gct': script_blur_cases(SCRIPT_GCT),
             'pspnet_gct': script_blur_cases(SCRIPT_PSP_GCT),
-            'sreg_gct': sreg_blur_cases()})
+            'sreg_gct': sreg_blur_cases(),
+            'visualize_gct': script_debug_blur_cases(SCRIPT_GCT)})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -3001,12 +3583,12 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/31]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/31]', SCRIPT_GCT, 'ssl_gct',
+        run('20', phase_voc, '[20/34]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/34]', SCRIPT_GCT, 'ssl_gct',
                            BLUR_LAUNCHES_PER_STEP, multi=True,
                            native_augment=True, decoded_cache=True,
                            u8_transfer=True)
-        run('22', phase_voc, '[22/31]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('22', phase_voc, '[22/34]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
         sreg_launches = run('23', phase_sreg)
         run('24', phase_optimizers, opts.seed, STEPS)
         run('25', phase_sseg_flags, opts.seed, STEPS)
@@ -3016,6 +3598,9 @@ def main(argv=None):
         run('29', phase_bench)
         run('30', phase_serving)
         run('31', phase_rescore, opts.seed)
+        visual_launches = run('32', phase_visualize)
+        dist_launches = run('33', phase_distributed)
+        run('34', phase_gloo, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -3048,6 +3633,14 @@ def main(argv=None):
     # phase 26's GCT graph run: the harness step's shapes at 8+4 in float32,
     # 9 steps (2 eager, 7 replays of the captured step)
     multi_step = dict(gct_step, launches=multi_launches)
+    # phase 32's GCT runs: the debug visualization's six calls, at the
+    # whole batch of the script (2+2 @321); launches: every blur of both
+    # runs, steps and visualizations
+    visualize_step = per_step('visualize_gct')
+    visualize_step['launches'] = sum(visual_launches.values())
+    # phase 33's distributed GCT runs: the script's shapes, launches of its
+    # two runs (eager, and through the CUDA graph)
+    distributed_step = dict(script_step, launches=dist_launches)
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -3076,15 +3669,23 @@ def main(argv=None):
                'train_steps (--steps-per-dispatch 4), shapes of path gct, '
                'launches over its 9 steps, 7 of them CUDA graph replays '
                'that each add the 6 calls the capture recorded; calls of '
-               'path large_k: kernels past 129 taps',
+               'path large_k: kernels past 129 taps; visualize_gct: the '
+               'debug visualization of a GCT step of the script of phase 32 '
+               '(2+2 @321, the whole batch), 2x each call of path '
+               'visualize_gct, launches over both runs of phase 32 (steps '
+               'and visualizations); distributed_gct: the GCT script under '
+               '--distributed at world size 1 (phase 33), shapes of '
+               'script_gct, launches over its eager and graph runs',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
         'sreg_gct': sreg_step,
         'multi_step_gct': multi_step,
+        'visualize_gct': visualize_step,
+        'distributed_gct': distributed_step,
         'calls': rows,
     }
-    say('chip_smoke: all 31 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 34 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

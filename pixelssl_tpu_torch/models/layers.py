@@ -8,7 +8,10 @@ NCHW.
   channel (PSPNet's 1x1 pyramid bin on one row) it normalises with variance
   0 and moves the running variance by ``var * n / max(n - 1, 1)`` = 0, as
   the JAX layer does, where PyTorch's raises. ``sample_weight`` keeps rows
-  of weight 0 out of the statistics.
+  of weight 0 out of the statistics. In training under a process group of
+  more than one rank (``sync``, a ``parallel.Mesh`` that the algorithm
+  sets) it sums the float32 ``(sum, ssum, count)`` over the ranks, and
+  differentiates through that sum, as the JAX layer ``psum``s them.
 * ``resize_bilinear``: both ``align_corners`` conventions. ``F.interpolate``
   is the same two-tap arithmetic as the JAX interpolation matrices.
 * ``resize_nearest``: source index ``i * in // out`` in integers, a gather;
@@ -35,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import all_sum
+
 
 def bf16_autocast(x, enabled=True):
     """bf16 autocast on ``x``'s device. While a CUDA graph captures, the
@@ -55,18 +60,22 @@ class SyncBatchNorm(nn.BatchNorm2d):
     out (its layers.py:50-89). ``update_stats`` False normalises with the
     batch statistics but leaves the running ones where they are: the
     recompute of a ``--remat`` block (``models/resnet.py``) runs its
-    forward a second time, which must not move them again.
+    forward a second time, which must not move them again. ``sync`` (a
+    ``parallel.Mesh`` of more than one rank, or None): the statistics are
+    those of every rank's batch.
     """
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5):
         super(SyncBatchNorm, self).__init__(num_features, eps=eps,
                                             momentum=momentum)
         self.update_stats = True
+        self.sync = None
 
     def forward(self, x, sample_weight=None):
         if not self.training:
             return super(SyncBatchNorm, self).forward(x)
-        if sample_weight is None and x.numel() != x.shape[1]:
+        if (sample_weight is None and self.sync is None and
+                x.numel() != x.shape[1]):
             if self.update_stats:
                 return super(SyncBatchNorm, self).forward(x)
             # scratch copies take the update: the autograd graph saves the
@@ -74,21 +83,27 @@ class SyncBatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean.clone(),
                                 self.running_var.clone(), self.weight,
                                 self.bias, True, self.momentum, self.eps)
-        # the statistics by hand: weighted rows, or one value per channel
-        # (biased variance 0, unbiased 0 * 1 / 1)
+        # the statistics by hand: weighted rows, one value per channel
+        # (biased variance 0, unbiased 0 * 1 / 1), or summed over the ranks
         xf = x.float()
         per_sample = x.shape[2] * x.shape[3]
         if sample_weight is None:
             # a fill, not a copy from the host: capturable
-            count = torch.full((), float(x.shape[0] * per_sample),
+            count = torch.full((1,), float(x.shape[0] * per_sample),
                                dtype=torch.float32, device=x.device)
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            s = xf.sum(dim=(0, 2, 3))
+            ss = xf.square().sum(dim=(0, 2, 3))
         else:
             w = sample_weight.float().reshape(-1, 1, 1, 1)
-            count = sample_weight.float().sum() * per_sample
-            mean = (xf * w).sum(dim=(0, 2, 3)) / count
-            var = (xf.square() * w).sum(dim=(0, 2, 3)) / count - mean.square()
+            count = (sample_weight.float().sum() * per_sample).reshape(1)
+            s = (xf * w).sum(dim=(0, 2, 3))
+            ss = (xf.square() * w).sum(dim=(0, 2, 3))
+        if self.sync is not None:
+            c = s.shape[0]
+            sums = all_sum(torch.cat([s, ss, count]), self.sync)
+            s, ss, count = sums[:c], sums[c:2 * c], sums[2 * c:]
+        mean = s / count
+        var = ss / count - mean.square()
         if self.update_stats:
             unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
             # in place on ``.data``, as PyTorch's kernel updates them: an

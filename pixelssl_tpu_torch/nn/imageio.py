@@ -10,7 +10,11 @@ given as PIL gives them, ``(width, height)``.
   ``Image.open(path).convert('RGB')``'s;
 * ``read_label``: an 8-bit gray or palette PNG, the raw values (the
   palette index, as ``np.asarray(Image.open(png))`` gives them), read with
-  ``zlib``;
+  ``zlib``; ``read_png`` also reads 8-bit RGB;
+* ``write_png``: an 8-bit gray or RGB PNG (``--visualize``; the JAX
+  package saves through ``Image.fromarray(...).save``): one IDAT of rows
+  with filter 0, ``zlib`` and ``zlib.crc32``. The pixels are Pillow's; the
+  bytes may differ, since the compression differs;
 * ``resize_bilinear`` and ``resize_nearest``: ``Image.resize`` with
   ``BILINEAR`` and ``NEAREST``. PIL's bilinear resize is antialiased (the
   triangle filter's support widens by the scale factor when it shrinks)
@@ -43,6 +47,20 @@ def read_rgb(path):
 def read_label(path):
     """uint8 [H,W] raw values of an 8-bit gray or palette PNG that is not
     interlaced (VOC ``SegmentationClassAug``); any other PNG raises."""
+    return _read_png(path, (0, 3), 'gray or palette PNG label maps')
+
+
+def read_png(path):
+    """uint8 [H,W] (gray or palette) or [H,W,3] (RGB) of an 8-bit PNG that
+    is not interlaced, as ``write_png`` and Pillow write them; any other
+    PNG raises."""
+    return _read_png(path, (0, 2, 3), 'gray, RGB or palette PNGs')
+
+
+_CHANNELS = {0: 1, 2: 3, 3: 1}
+
+
+def _read_png(path, colors, what):
     with open(path, 'rb') as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -63,26 +81,53 @@ def read_label(path):
     if header is None:
         raise ValueError('PNG without IHDR: {0}'.format(path))
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in (0, 3) or interlace != 0:
+    if depth != 8 or color not in colors or interlace != 0:
         raise ValueError(
-            'only 8-bit gray or palette PNG label maps that are not '
-            'interlaced are supported (bit depth {0}, color type {1}, '
-            'interlace {2}): {3}'.format(depth, color, interlace, path))
+            'only 8-bit {0} that are not interlaced are supported (bit '
+            'depth {1}, color type {2}, interlace {3}): {4}'.format(
+                what, depth, color, interlace, path))
+    bpp = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    if raw.size != h * (w + 1):
+    if raw.size != h * (w * bpp + 1):
         raise ValueError('bad PNG image data in {0}'.format(path))
-    return _unfilter(raw.reshape(h, w + 1), path)
+    out = _unfilter(raw.reshape(h, w * bpp + 1), path, bpp)
+    return out.reshape(h, w, 3) if bpp == 3 else out
 
 
-def _unfilter(rows, path):
-    """PNG's per-row filters undone, one byte a pixel. Runs of rows with the
-    same filter go at once where the filter allows: none, sub (a running
-    sum along the row) and up (a running sum down the rows), modulo 256;
-    average and Paeth need each byte's left neighbour, byte by byte."""
-    h, w = rows.shape[0], rows.shape[1] - 1
+def write_png(path, img):
+    """``img``, uint8 [H,W] (gray, color type 0) or [H,W,3] (RGB, color
+    type 2), as an 8-bit PNG at ``path``."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError('write_png takes uint8 [H,W] or [H,W,3], got {0} '
+                         '{1}'.format(img.dtype, img.shape))
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)  # filter 0 a row
+    rows[:, 1:] = img.reshape(h, -1)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body) & 0xffffffff))
+
+    header = struct.pack('>IIBBBBB', w, h, 8, 0 if img.ndim == 2 else 2,
+                         0, 0, 0)
+    with open(path, 'wb') as f:
+        f.write(_PNG_SIGNATURE + chunk(b'IHDR', header) +
+                chunk(b'IDAT', zlib.compress(rows.tobytes())) +
+                chunk(b'IEND', b''))
+
+
+def _unfilter(rows, path, bpp=1):
+    """PNG's per-row filters undone, ``bpp`` bytes a pixel. Runs of rows
+    with the same filter go at once where the filter allows: none, sub (a
+    running sum along the row, a pixel's bytes apart) and up (a running sum
+    down the rows), modulo 256; average and Paeth need each byte's left
+    neighbour, byte by byte."""
+    h, n = rows.shape[0], rows.shape[1] - 1
     kinds, data = rows[:, 0], rows[:, 1:]
-    out = np.zeros((h, w), np.uint8)
-    prev = np.zeros(w, np.uint8)
+    out = np.zeros((h, n), np.uint8)
+    prev = np.zeros(n, np.uint8)
     y = 0
     while y < h:
         kind = kinds[y]
@@ -92,17 +137,19 @@ def _unfilter(rows, path):
         if kind == 0:
             out[y:end] = data[y:end]
         elif kind == 1:
-            out[y:end] = np.add.accumulate(data[y:end], axis=1,
-                                           dtype=np.uint8)
+            out[y:end] = np.add.accumulate(
+                data[y:end].reshape(end - y, n // bpp, bpp), axis=1,
+                dtype=np.uint8).reshape(end - y, n)
         elif kind == 2:
             out[y:end] = np.add.accumulate(
                 np.vstack([prev[None], data[y:end]]), axis=0,
                 dtype=np.uint8)[1:]
         elif kind in (3, 4):
             up_row, vals = prev.tolist(), data[y].tolist()
-            left, up_left = 0, 0
-            for x in range(w):
+            for x in range(n):
+                left = vals[x - bpp] if x >= bpp else 0
                 up = up_row[x]
+                up_left = up_row[x - bpp] if x >= bpp else 0
                 if kind == 3:
                     pred = (left + up) >> 1
                 else:
@@ -110,9 +157,7 @@ def _unfilter(rows, path):
                     pa, pb, pc = abs(p - left), abs(p - up), abs(p - up_left)
                     pred = left if pa <= pb and pa <= pc else (
                         up if pb <= pc else up_left)
-                left = (vals[x] + pred) & 0xFF
-                vals[x] = left
-                up_left = up
+                vals[x] = (vals[x] + pred) & 0xFF
             out[y] = vals
         else:
             raise ValueError('bad PNG filter type {0} in {1}'.format(

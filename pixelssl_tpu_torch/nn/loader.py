@@ -15,7 +15,10 @@ sample's accesses: an epoch's batches reach the workers as keys
 ``(idx, k)``, the k-th access of sample ``idx`` since the loader was made,
 from which the dataset draws its augmentation (JAX ``tasks/sseg/data.py``
 counts them in the dataset, which its loader threads share; a worker
-process would count only its own). ``to_device`` then makes a batch what
+process would count only its own). Under ``--distributed`` the batch
+sampler is a ``parallel.multihost.ProcessShardedSampler``: each rank
+counts the accesses of the whole global batch, then loads its own slice
+(``shard``), so that a sample's draw is the one-process run's. ``to_device`` then makes a batch what
 the algorithms take: NCHW images and int64 labels on the device, copied
 with ``non_blocking`` from pinned memory on the current stream and
 permuted there. uint8 images and labels (``--u8-transfer``) stay uint8
@@ -225,8 +228,15 @@ class DataLoader(object):
             yield to_device(inp, gt, self.device)
 
     def __iter__(self):
-        # the epoch's keys are counted when it starts
-        self._epoch.batches = [self._keys(b) for b in self.batch_sampler]
+        # the epoch's keys are counted when it starts, over the global
+        # batches where the sampler gives each rank its slice
+        sampler = self.batch_sampler
+        shard = getattr(sampler, 'shard', None)
+        if shard is None:
+            self._epoch.batches = [self._keys(b) for b in sampler]
+        else:
+            self._epoch.batches = [shard(self._keys(b))
+                                   for b in sampler.sampler]
         items = self._batches()
         if self.eager_ingest:
             items = ingested(items, self.device)

@@ -49,7 +49,10 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
     registries, then build ``args.ssl_algorithm`` on ``device`` and
     initialise it from ``--seed`` (JAX proxy.py:498-544). The proxy and
     the harness both build through here. With ``task_type``, an algorithm
-    that does not support it is refused."""
+    that does not support it is refused. The batch sizes of ``args`` are
+    global: under ``torch.distributed`` each of the W ranks steps on 1/W of
+    them (``parallel.make_mesh``), as the JAX build divides by its mesh."""
+    from .. import parallel
     from ..nn import lrer as nnlrer
     from ..nn import optimizer as nnoptimizer
     from ..utils import logger
@@ -69,11 +72,17 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
         optimizer_dict[cname] = nnoptimizer.get(args.optimizers[cname])(args)
     task_func = func.task_func()(args)
 
+    mesh = parallel.make_mesh(device)
+    lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
+    if lbs % mesh.world_size or ubs % mesh.world_size:
+        logger.log_err('the labeled ({0}) and unlabeled ({1}) batch sizes '
+                       'must divide by the {2} ranks'.format(
+                           lbs, ubs, mesh.world_size))
     algo = get_builder(args.ssl_algorithm)(
         args, model_dict, optimizer_dict, lrer_dict, criterion_dict,
-        task_func, device=device, lbs=args.labeled_batch_size,
-        ubs=args.unlabeled_batch_size,
-        iters_per_epoch=max(1, int(iters_per_epoch or 1)))
+        task_func, device=device, lbs=lbs // mesh.world_size,
+        ubs=ubs // mesh.world_size,
+        iters_per_epoch=max(1, int(iters_per_epoch or 1)), mesh=mesh)
     if task_type is not None and task_type not in algo.SUPPORTED_TASK_TYPES:
         logger.log_err('SSL algorithm {0} supports {1}, but the task is '
                        '{2}'.format(algo.NAME, algo.SUPPORTED_TASK_TYPES,

@@ -33,7 +33,7 @@ from ..nn.func import split_tensor_tuple
 from ..nn.optimizer import Adam
 from ..utils import cmd, logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import SSLBase, TaskContext
+from .ssl_base import SSLBase, TaskContext, save_gray_map
 
 
 def add_parser_arguments(parser):
@@ -174,3 +174,14 @@ class SSLADV(SSLBase):
         resulter = self.model(inp)
         return {self.NAME: (resulter['activated_pred'],
                             self.criterion(resulter['pred'], gt, inp))}
+
+    def _debug_visualize(self, batch, out_path):
+        """D's confidence maps of the first labeled and the first unlabeled
+        sample of this rank's batch (JAX ssl_adv.py:249-270, reference
+        ssl_adv.py:393-408)."""
+        act = self.model(tuple(batch['inp']))['activated_pred'][0]
+        cmap = torch.sigmoid(self.d_model(act).float())
+        save_gray_map(cmap[:1], out_path + '_labeled-cmap.png')
+        if (self.ctx.ubs or 0) > 0:
+            u0 = self.ctx.lbs
+            save_gray_map(cmap[u0:u0 + 1], out_path + '_unlabeled-cmap.png')

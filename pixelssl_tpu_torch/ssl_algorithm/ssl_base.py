@@ -23,8 +23,19 @@ without a graph. The numbers a step takes from the host (lr, ramp-up
 coefficients, EMA decay, the ``adam`` rules' bias corrections) come through
 ``_scalar(fn)`` (``StepScalars``): Python numbers in an eager step, 0-d
 float32 tensors refilled before every replay in a captured one.
+
+Under ``--distributed`` (``parallel``) each rank steps on its own slice of
+the global batch: ``_global_mean`` is the mean over every rank's samples,
+``_apply_updates`` sums the gradients over the ranks between ``backward``
+and the optimizer's step, ``SyncBatchNorm`` sums its statistics, and rank
+0's weights are broadcast at build. ``validate`` scores each rank's share
+of the samples and sums the confusion matrices; rank 0 alone writes
+checkpoints, ``metrics.jsonl`` and the ``--visualize`` PNGs (``train``,
+``_train_multi``, ``validate``: an eval forward of the batch's first
+sample at ``--visual-freq``, outside any CUDA graph).
 """
 
+import contextlib
 import json
 import os
 
@@ -32,6 +43,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import parallel
+from ..models.layers import SyncBatchNorm
+from ..nn import imageio
 from ..nn import loader as nnloader
 from ..nn.func import count_params, sigmoid_rampup
 from ..nn.optimizer import ChainOptimizer
@@ -45,11 +59,15 @@ class TaskContext(object):
     """Everything the harness resolves for an algorithm build (reference
     export-function arguments, ssl_base.py:19-37: args, model_dict,
     optimizer_dict, lrer_dict, criterion_dict, task_func), plus the device,
-    the labeled/unlabeled split of the batch and the iterations per epoch.
+    the labeled/unlabeled split of this rank's batch, the iterations per
+    epoch and the ``parallel.Mesh`` (by default this process's).
+    ``n_dev`` is the number of ranks, which the reference's lr x GPU-count
+    scalings multiply by (ssl_adv.py:72, ssl_gct.py:107).
     """
 
     def __init__(self, args, models, optimizers, lrers, criterions, task_func,
-                 device, lbs=None, ubs=None, iters_per_epoch=None):
+                 device, lbs=None, ubs=None, iters_per_epoch=None,
+                 mesh=None):
         self.args = args
         self.models = models            # dict name -> TaskModel class
         self.optimizers = optimizers    # dict name -> OptimizerFactory
@@ -57,7 +75,8 @@ class TaskContext(object):
         self.criterions = criterions    # dict name -> TaskCriterion
         self.task_func = task_func
         self.device = device
-        self.n_dev = 1
+        self.mesh = mesh if mesh is not None else parallel.make_mesh(device)
+        self.n_dev = self.mesh.world_size
         self.lbs = lbs
         self.ubs = ubs
         self.iters_per_epoch = iters_per_epoch
@@ -235,6 +254,7 @@ class SSLBase(object):
         self.args = args
         self.ctx = ctx
         self.device = ctx.device
+        self.mesh = ctx.mesh
         self.state = None
         self.modules = {}
         self.optimizers = {}
@@ -249,6 +269,11 @@ class SSLBase(object):
         self.modules = self._build_modules(generator)
         for name, module in self.modules.items():
             module.to(self.device).train()
+            parallel.broadcast_module(module, self.mesh)
+            if self.mesh.world_size > 1:
+                for m in module.modules():
+                    if isinstance(m, SyncBatchNorm):
+                        m.sync = self.mesh
             logger.log_info('Model `{0}`: {1:,} parameters'.format(
                 name, count_params(module)))
         self.optimizers = self._build_optimizers()
@@ -344,14 +369,15 @@ class SSLBase(object):
     # ------------------------------------------------------------------
 
     def _step_seed(self, step, salt=0):
-        seq = np.random.SeedSequence([self.state.seed,
-                                      int(step) * 131 + int(salt)])
+        seq = np.random.SeedSequence(parallel.fold_rng(
+            [self.state.seed, int(step) * 131 + int(salt)], self.mesh))
         return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
     def _step_rng(self, step, salt=0):
         """A generator on the algorithm's device for step ``step``, seeded
         from ``(seed, step * 131 + salt)`` as the JAX package folds its key
-        (ssl_base.py:173-175); the draws themselves differ from JAX's.
+        (ssl_base.py:173-175), and the rank where several draw; the draws
+        themselves differ from JAX's.
         While the step is captured: the graph's generator of ``salt``,
         which ``CapturedStep.run`` seeds so before each replay."""
         if self._capture_generators is not None:
@@ -407,15 +433,31 @@ class SSLBase(object):
                    *self._ema_decay(ema_decay))
 
     def _global_mean(self, vec):
-        """Mean of a per-sample vector over the batch (one card)."""
-        return vec.mean()
+        """Mean of a per-sample vector over every rank's samples, ``Σ local
+        / Σ_ranks count`` (JAX ssl_base.py:180-185). Its value is the same
+        on every rank; its gradient is this rank's share, ``1 / Σ count``
+        a sample, which ``_apply_updates`` sums over the ranks."""
+        if not self.mesh.distributed:
+            return vec.mean()
+        local = vec.sum()
+        count = torch.full((), float(vec.shape[0]), dtype=local.dtype,
+                           device=local.device)
+        total = parallel.psum_if_parallel(
+            torch.stack([local.detach(), count]), self.mesh)
+        return (local + (total[0] - local.detach())) / total[1]
 
-    @staticmethod
-    def _apply_updates(optimizer, loss, params):
-        """Gradient of ``loss`` for ``params`` only, then one optimizer
-        step; other leaves of the graph gather no gradient."""
+    def _pmean(self, value):
+        """``value`` (no gradient) averaged over the ranks."""
+        return parallel.pmean_if_parallel(value, self.mesh)
+
+    def _apply_updates(self, optimizer, loss, params):
+        """Gradient of ``loss`` for ``params`` only, summed over the ranks
+        in one flat all-reduce, then one optimizer step; other leaves of
+        the graph gather no gradient."""
+        params = list(params)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward(inputs=list(params))
+        loss.backward(inputs=params)
+        parallel.all_reduce_grads(params, self.mesh)
         optimizer.step()
 
     # ------------------------------------------------------------------
@@ -433,7 +475,9 @@ class SSLBase(object):
         ``data_time``, the part of it spent waiting for the loader (host
         clock; the device runs ahead of the host between syncs).
         ``--profile-dir`` traces steps [1, 1 + ``--profile-steps``] of
-        epoch 0 (``utils.profiler.ProfileWindow``)."""
+        epoch 0 (``utils.profiler.ProfileWindow``). ``--visualize``: every
+        ``--visual-freq`` iterations ``idx`` (from 0), the PNGs
+        ``<epoch>_<idx>_*`` of the batch (``_visualize``)."""
         if self.steps_per_dispatch > 1:
             return self._train_multi(data_loader, epoch)
         self.meters.reset()
@@ -445,6 +489,8 @@ class SSLBase(object):
             timer.host_done()
             prof.tick(idx)
             metrics = self.train_step(batch)
+            if self._visual_due(idx):
+                self._visualize(batch, '{0}_{1}'.format(epoch, idx))
             due = (idx + 1) % log_freq == 0 or idx == n_batches - 1
             self._step_done(epoch, idx + 1, n_batches, metrics, timer, 1, due)
         prof.close()
@@ -456,7 +502,11 @@ class SSLBase(object):
         chunk one ``train_steps``; a tail of fewer than n batches takes the
         eager single step. The metrics of a dispatch are its last step's,
         logged when the dispatch reaches a multiple of ``--log-freq`` and
-        at the epoch's end; the profiler's window counts dispatches."""
+        at the epoch's end; the profiler's window counts dispatches.
+        ``--visualize``: a dispatch that passes a multiple of
+        ``--visual-freq`` visualizes its last batch as ``<epoch>_<done>``,
+        after the replays; the tail's single steps do not (JAX
+        ``_train_multi``)."""
         self.meters.reset()
         n = self.steps_per_dispatch
         n_batches = len(data_loader)
@@ -472,6 +522,9 @@ class SSLBase(object):
                 metrics = self.train_steps(payload)
                 steps = len(payload)
                 done += steps
+                if self._visual_due(done, steps):
+                    self._visualize(payload[-1],
+                                    '{0}_{1}'.format(epoch, done))
                 due = done % max(log_freq, n) < n
             else:
                 metrics = self.train_step(payload)
@@ -482,6 +535,52 @@ class SSLBase(object):
                             due or done >= n_batches)
         prof.close()
         return self.meters
+
+    def _visual_due(self, idx, steps=1):
+        """Whether the iterations up to ``idx`` (the last ``steps`` of
+        them) reach a multiple of ``--visual-freq``, with ``--visualize``
+        and its train folder set, on rank 0 (which alone writes them)."""
+        args = self.args
+        return (bool(getattr(args, 'visualize', False)) and
+                bool(getattr(args, 'visual_train_path', '')) and
+                self.mesh.rank == 0 and
+                idx % max(1, args.visual_freq) < steps)
+
+    @contextlib.contextmanager
+    def _evaluating(self):
+        """Every module in eval mode and no gradient inside the block; back
+        in train mode after it."""
+        for module in self.modules.values():
+            module.eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            for module in self.modules.values():
+                module.train()
+
+    def _visualize(self, batch, name):
+        """The PNGs of a train batch's first sample under
+        ``--visual-train-path``/``name``: the eval forward of ``_eval_fn``
+        (every model: input, prediction, GT) and ``_debug_visualize`` (JAX
+        ssl_base.py:246-264). It runs eagerly, outside any CUDA graph, and
+        reads the maps to the host."""
+        task_func = self.ctx.task_func
+        out = os.path.join(self.args.visual_train_path, name)
+        batch = task_func.device_prep(batch)
+        with self._evaluating():
+            for model_id, (activated_pred, _) in self._eval_fn(batch).items():
+                task_func.visualize(out, id_str=model_id,
+                                    inp=_first(batch['inp']),
+                                    pred=_first(activated_pred),
+                                    gt=_first(batch['gt']))
+            self._debug_visualize(batch, out)
+
+    def _debug_visualize(self, batch, out_path):
+        """Maps of the algorithm's own beside the input, prediction and GT
+        PNGs (JAX ssl_base.py:152; AdvSSL's confidence maps, GCT's
+        flawmaps and pseudo-GT). Runs in eval mode without gradient.
+        Base: nothing."""
 
     def _step_done(self, epoch, done, n_batches, metrics, timer, steps, due):
         """``steps`` steps queued, ``done`` of the epoch. When ``due``, the
@@ -508,7 +607,7 @@ class SSLBase(object):
     def log_epoch_summary(self, epoch, wall_s, n_iters):
         """The epoch's samples/s through the whole loop (loader, copies to
         the device, steps), logged and written to ``metrics.jsonl``."""
-        n_chips = 1
+        n_chips = self.mesh.world_size
         sps = n_iters * int(self.args.batch_size) / max(wall_s, 1e-9)
         logger.log_info(
             'epoch {0:>3} done: {1} iters in {2:.1f}s, {3:.1f} samples/s '
@@ -529,31 +628,51 @@ class SSLBase(object):
     def validate(self, data_loader, epoch):
         """Score every model of ``_eval_fn`` on ``data_loader``'s batches;
         returns ``{metric key: value}``. A batch may carry a ``valid``
-        mask [N] that weights its per-sample losses."""
+        mask [N] that weights its per-sample losses. A loader whose
+        ``sharded`` is true gives each rank its share of the samples: a
+        batch's loss is ``Σ(loss·valid) / max(Σvalid, 1)`` over every
+        rank's samples, and the confusion matrices are summed over the
+        ranks (JAX ssl_base.py:396-445). ``--visualize``: rank 0 writes the
+        PNGs of its batch's first sample every ``--visual-freq``
+        batches."""
         self.meters = AvgMeterSet()  # no stale training keys
         task_func = self.ctx.task_func
-        for module in self.modules.values():
-            module.eval()
-        try:
-            with torch.no_grad():
-                for batch in data_loader:
-                    batch = task_func.device_prep(batch)
-                    valid = batch.get('valid')
-                    for model_id, (activated_pred, loss_vec) in \
-                            self._eval_fn(batch).items():
-                        if valid is not None:
-                            v = valid.to(loss_vec)
-                            loss = (loss_vec * v).sum() / v.sum().clamp(min=1.0)
-                        else:
-                            loss = loss_vec.mean()
-                        self.meters.update('{0}_loss'.format(model_id),
-                                           float(loss))
-                        task_func.metrics(activated_pred, batch['gt'],
-                                          batch['inp'], self.meters,
-                                          id_str=model_id)
-        finally:
-            for module in self.modules.values():
-                module.train()
+        args = self.args
+        reduce = None
+        if getattr(data_loader, 'sharded', False):
+            def reduce(tensor):
+                return parallel.psum_if_parallel(tensor, self.mesh)
+        visual = (bool(getattr(args, 'visualize', False)) and
+                  bool(getattr(args, 'visual_val_path', '')) and
+                  self.mesh.rank == 0)
+        with self._evaluating():
+            for idx, batch in enumerate(data_loader):
+                batch = task_func.device_prep(batch)
+                valid = batch.get('valid')
+                out = None
+                if visual and idx % max(1, args.visual_freq) == 0:
+                    out = os.path.join(args.visual_val_path,
+                                       '{0}_{1}'.format(epoch, idx))
+                for model_id, (activated_pred, loss_vec) in \
+                        self._eval_fn(batch).items():
+                    if valid is not None:
+                        v = valid.to(loss_vec)
+                        sums = torch.stack([(loss_vec * v).sum(), v.sum()])
+                        if reduce is not None:
+                            sums = reduce(sums)
+                        loss = sums[0] / sums[1].clamp(min=1.0)
+                    else:
+                        loss = loss_vec.mean()
+                    self.meters.update('{0}_loss'.format(model_id),
+                                       float(loss))
+                    task_func.metrics(activated_pred, batch['gt'],
+                                      batch['inp'], self.meters,
+                                      id_str=model_id, reduce=reduce)
+                    if out is not None:
+                        task_func.visualize(out, id_str=model_id,
+                                            inp=_first(batch['inp']),
+                                            pred=_first(activated_pred),
+                                            gt=_first(batch['gt']))
 
         results = {key: meter.avg for key, meter in self.meters.items()
                    if METRIC_STR in key}
@@ -570,9 +689,9 @@ class SSLBase(object):
 
     def _log_jsonl(self, record):
         """Append ``record`` to ``metrics.jsonl`` beside
-        ``--checkpoint-path`` (nothing without one)."""
+        ``--checkpoint-path`` (nothing without one), on rank 0."""
         path = getattr(self.args, 'checkpoint_path', '')
-        if not path:
+        if not path or self.mesh.rank != 0:
             return
         out = os.path.join(os.path.dirname(path.rstrip('/')), 'metrics.jsonl')
         with open(out, 'a') as f:
@@ -586,7 +705,8 @@ class SSLBase(object):
         """``torch.save`` of every module's and optimizer's ``state_dict``,
         the step, the seed, the epoch and the algorithm's name, to ``path`` or
         ``<checkpoint_path>/checkpoint_<epoch>.pth``; a file already there
-        is replaced. Returns the path."""
+        is replaced. Rank 0 writes it, between barriers of every rank: no
+        rank goes on before the file is whole. Returns the path."""
         if path is None:
             path = os.path.join(self.args.checkpoint_path,
                                 'checkpoint_{0}.pth'.format(epoch))
@@ -600,16 +720,20 @@ class SSLBase(object):
             'optimizers': {k: o.state_dict()
                            for k, o in self.optimizers.items()},
         }
-        tmp = path + '.tmp'
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        logger.log_info('Saved checkpoint: {0}'.format(path))
+        parallel.barrier(self.mesh)
+        if self.mesh.rank == 0:
+            tmp = path + '.tmp'
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            logger.log_info('Saved checkpoint: {0}'.format(path))
+        parallel.barrier(self.mesh)
         return path
 
     def load_checkpoint(self, path=None):
         """Restore a checkpoint of ``save_checkpoint`` (``path`` or
-        ``--resume``) into the built algorithm; refuses one that another
-        algorithm wrote. Returns its epoch."""
+        ``--resume``) into the built algorithm, each tensor onto this
+        rank's device; refuses one that another algorithm wrote. Returns
+        its epoch."""
         path = os.path.abspath(path or self.args.resume)
         # on the host first: ``load_state_dict`` moves each module's and
         # optimizer's tensors to their parameters' device, and leaves on
@@ -633,6 +757,24 @@ class SSLBase(object):
         logger.log_info('Loaded checkpoint: {0} (epoch {1})'.format(
             path, ckpt['epoch']))
         return int(ckpt['epoch'])
+
+
+def _first(tensors):
+    """The first sample of each tensor of a tuple."""
+    return tuple(t[:1] for t in tensors)
+
+
+def save_gray_map(arr, path):
+    """A 0-1 map, [1,1,H,W]/[1,H,W,1]/[H,W]-like, as an 8-bit gray PNG:
+    clipped to [0, 1], times 255, truncated to uint8 (JAX
+    ssl_base.py:539-546; the reference's D confidence maps and flawmaps,
+    ssl_adv.py:402-408)."""
+    if torch.is_tensor(arr):
+        arr = arr.detach().float().cpu().numpy()
+    a = np.asarray(arr).astype(np.float32)
+    while a.ndim > 2:
+        a = a[0] if a.shape[0] == 1 else a[..., 0]
+    imageio.write_png(path, (np.clip(a, 0.0, 1.0) * 255).astype('uint8'))
 
 
 @torch.no_grad()

@@ -130,8 +130,9 @@ class SSLCUTMIX(SSLBase):
             with torch.no_grad():
                 u_t_act = self._teacher_forward(u_inp)['activated_pred']
                 mix_t_act = [mix(a) for a in u_t_act]
-                confidences = [(a.amax(dim=1) > args.cons_threshold).float()
-                               .mean() for a in mix_t_act]
+                confidences = [self._pmean(
+                    (a.amax(dim=1) > args.cons_threshold).float().mean())
+                    for a in mix_t_act]
 
         # the labeled rows first, then the mixed rows: two forwards whose
         # BN statistics move in turn

@@ -24,7 +24,8 @@ One step has three phases (reference ssl_gct.py:176-298, JAX
 
 The pipeline functions take and return NHWC maps, as the JAX ones do; the
 modules are NCHW and the step passes permuted views between them. Every
-blur goes through ``ops.blur.gaussian_blur_fused``: six launches a step.
+blur goes through ``ops.blur.gaussian_blur_fused``: six launches a step,
+and six more a step that ``--visualize`` dumps (``_debug_visualize``).
 """
 
 import torch
@@ -37,7 +38,7 @@ from ..nn.optimizer import Adam
 from ..ops.blur import gaussian_blur_fused as _blur
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import SSLBase, TaskContext
+from .ssl_base import SSLBase, TaskContext, save_gray_map
 
 MODE_GCT = 'gct'
 MODE_FC = 'fc'
@@ -300,6 +301,37 @@ class SSLGCT(SSLBase):
         metrics['l_fd_loss'] = l_fd_loss.detach()
         metrics['r_fd_loss'] = r_fd_loss.detach()
         return metrics
+
+    def _debug_visualize(self, batch, out_path):
+        """Flawmaps, the FD's ground truth and the DC pseudo-GT of both
+        task models (JAX ssl_gct.py:423-468, reference ssl_gct.py:486-499),
+        every module in eval mode: ``flawmap_handler`` and
+        ``fdgt_generator`` on the whole batch (the step's FDGT sees the
+        labeled part only), six blur launches."""
+        args = self.args
+        inp, gt = tuple(batch['inp']), tuple(batch['gt'])
+        im_size = inp[0].shape[2]
+        gt_enc = self.ctx.task_func.sslgct_prepare_task_gt_for_fdgt(gt[0])
+        maps, acts = {}, {}
+        for mid, model in (('l', self.l_model), ('r', self.r_model)):
+            act = model(inp)['activated_pred'][0]
+            acts[mid] = _nhwc(act)
+            maps[mid + '_fmap'] = flawmap_handler(
+                _nhwc(self.fd_model(inp, act)), im_size)
+            maps[mid + '_fmap_gt'] = fdgt_generator(
+                acts[mid], gt_enc, im_size, args.mu, args.nu)
+        if args.ssl_mode in (MODE_GCT, MODE_DC):
+            maps['l_dc_gt'], maps['r_dc_gt'], _, _ = dcgt_generator(
+                acts['l'], acts['r'], maps['l_fmap'], maps['r_fmap'],
+                args.dc_threshold)
+        for mid in ('l', 'r'):
+            save_gray_map(maps[mid + '_fmap'][:1],
+                          out_path + '_{0}-fmap.png'.format(mid))
+            save_gray_map(maps[mid + '_fmap_gt'][:1],
+                          out_path + '_{0}-fmap-gt.png'.format(mid))
+            if mid + '_dc_gt' in maps:
+                self.ctx.task_func.visualize_pseudo_gt(
+                    maps[mid + '_dc_gt'][:1], out_path, id_str=mid)
 
     def _eval_fn(self, batch):
         """Both task models, ids ``l`` and ``r`` (JAX ssl_gct.py:410-421)."""

@@ -4,9 +4,23 @@ pixelssl/task_template/func.py:20-259), as far as the ported algorithms
 use them.
 """
 
+import numpy as np
+import torch
+
 from ..utils import logger
 
 METRIC_STR = 'metric'
+
+
+def host_sample(x):
+    """A tensor or array on the host as numpy, without a leading batch dim
+    of 1 ([1,C,H,W] -> [C,H,W], [1,H,W] labels -> [H,W])."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    if x.ndim == 4 or (x.ndim == 3 and x.shape[0] == 1):
+        return x[0]
+    return x
 
 
 class TaskFunc(object):
@@ -21,11 +35,17 @@ class TaskFunc(object):
         hands over float32 images and int64 labels."""
         return batch
 
-    def metrics(self, pred, gt, inp, meters, id_str=''):
+    def metrics(self, pred, gt, inp, meters, id_str='', reduce=None):
         """Accumulate task metrics into ``meters`` (reference
         func.py:42-56); ``validate`` reports every key holding
-        ``METRIC_STR``."""
+        ``METRIC_STR``. ``reduce``, where given, sums a tensor of counts
+        over the ranks before it reaches the meters."""
         raise NotImplementedError
+
+    def visualize(self, out_path, id_str='', inp=None, pred=None, gt=None):
+        """Save the first sample's input, prediction and GT as PNGs
+        (reference func.py:59-77)."""
+        logger.log_err('Task does not implement visualize')
 
     # hooks for ssl_adv (reference func.py:80-145)
 

@@ -5,13 +5,24 @@ pixelssl/task_template/proxy.py:18-457).
 The reference's pipeline: argument checks -> output directories -> dataset
 wiring (``SplitUnlabeledWrapper``/``JointDatasetsWrapper`` and the
 two-stream sampler) -> the algorithm's build -> the epoch loop with its
-validation and checkpoint frequencies. The port runs on one device, the
-``device`` argument (the card unless the caller asks for the CPU): batch,
-lr and workers are not scaled.
+validation and checkpoint frequencies. The port runs on the ``device``
+argument (the card unless the caller asks for the CPU).
+
+``--distributed`` (under ``torchrun``) forms the process group first
+(``parallel.multihost.initialize``); each rank then runs on
+``cuda:<LOCAL_RANK>`` (the CPU when asked). As the JAX proxy scales by its
+mesh (proxy.py:258-272), the config's batch sizes and lr are per rank and
+are multiplied by the number of ranks; each rank loads its own slice of
+every global batch (``ProcessShardedSampler``) with ``--num-workers``
+workers of its own, so that the workers of all ranks are as many as the
+JAX package's, and validates its share of the samples (``_ValLoader``).
+
+``--visualize`` makes ``visualization/{debug,train,val}`` under the
+experiment's folder and points ``--visual-*-path`` there.
 
 Flags of the JAX package that the port lacks parse here, and any value but
-their default is refused with the ROADMAP item that ports them: the
-scale-out flags (A4b) and ``--visualize`` (A2c). ``--steps-per-dispatch``
+their default is refused with the ROADMAP item that ports them:
+``--spatial-val`` and ``--spatial-train`` (A4c). ``--steps-per-dispatch``
 shapes the algorithm's loop (``SSLBase.train``: chunks of a dispatch),
 ``--eager-ingest`` the train loader (``nn.loader``: the copy on a side
 stream); ``--profile-dir`` and ``--profile-steps`` the loop's profiler
@@ -26,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..nn import data as nndata
 from ..nn import loader as nnloader
 from ..nn import lrer as nnlrer
@@ -35,8 +47,7 @@ from ..utils import device as device_util
 # (flag, its default, the ROADMAP item that ports it): any value but the
 # default is refused
 _UNPORTED_FLAGS = (
-    ('spatial_val', False, 'A4b'), ('spatial_train', 0, 'A4b'),
-    ('distributed', False, 'A4b'), ('visualize', False, 'A2c'))
+    ('spatial_val', False, 'A4c'), ('spatial_train', 0, 'A4c'))
 
 _CHECKPOINT_RE = re.compile(r'^checkpoint_(\d+)\.pth$')
 
@@ -49,7 +60,7 @@ def add_parser_arguments(parser):
     parser.add_argument('--resume', type=str, default='', metavar='', help='exp - checkpoint to resume')
     parser.add_argument('--validation', type=cmd.str2bool, default=False, metavar='', help='exp - validation only')
     parser.add_argument('--out-path', type=str, default='', metavar='', help='exp - output root path')
-    parser.add_argument('--visualize', type=cmd.str2bool, default=False, metavar='', help='exp - save visualization images (ROADMAP A2c)')
+    parser.add_argument('--visualize', type=cmd.str2bool, default=False, metavar='', help='exp - save visualization images')
     parser.add_argument('--debug', type=cmd.str2bool, default=False, metavar='', help='exp - debug mode')
     parser.add_argument('--val-freq', type=int, default=1, metavar='', help='exp - validation frequency [epoch]')
     parser.add_argument('--log-freq', type=int, default=100, metavar='', help='exp - logging frequency [iteration]')
@@ -58,8 +69,8 @@ def add_parser_arguments(parser):
     parser.add_argument('--seed', type=int, default=0, metavar='', help='exp - global random seed')
     parser.add_argument('--steps-per-dispatch', type=int, default=1, metavar='', help='exp - train steps a dispatch: on the card one CUDA graph of the step, replayed once a step')
     parser.add_argument('--eager-ingest', type=cmd.str2bool, default=False, metavar='', help='exp - copy each train batch to the card in a loader thread, on a side stream')
-    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - split validation images over devices (ROADMAP A4b)')
-    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split train images over devices (ROADMAP A4b)')
+    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - split validation images over devices (ROADMAP A4c)')
+    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split train images over devices (ROADMAP A4c)')
     parser.add_argument('--profile-dir', type=str, default='', metavar='', help='exp - trace train steps [1, 1 + profile-steps] of epoch 0 into this directory (torch.profiler, Chrome trace)')
     parser.add_argument('--profile-steps', type=int, default=10, metavar='', help='exp - steps (or dispatches) traced by --profile-dir')
     parser.add_argument('--exact-val', type=cmd.str2bool, default=False, metavar='',
@@ -68,12 +79,12 @@ def add_parser_arguments(parser):
     parser.add_argument('--auto-resume', type=cmd.str2bool, default=False, metavar='',
                         help='exp - resume from the newest checkpoint_<epoch>.pth '
                              'of the experiment, if there is one')
-    parser.add_argument('--distributed', type=cmd.str2bool, default=False, metavar='', help='exp - multi-process run (ROADMAP A4b)')
+    parser.add_argument('--distributed', type=cmd.str2bool, default=False, metavar='', help='exp - data parallel over processes, one card a process (launch with torchrun)')
 
     # dataset / data loader
     parser.add_argument('--trainset', type=cmd.strdict, default={}, metavar='', help='data - {dataset_type: [paths]}')
     parser.add_argument('--valset', type=cmd.strdict, default={}, metavar='', help='data - {dataset_type: [paths]}')
-    parser.add_argument('--num-workers', type=int, default=1, metavar='', help='data - loader worker processes')
+    parser.add_argument('--num-workers', type=int, default=1, metavar='', help='data - loader worker processes a rank')
     parser.add_argument('--im-size', type=int, default=None, metavar='', help='data - target input image size')
     parser.add_argument('--unlabeledset', type=cmd.strdict, default={}, metavar='', help='data - extra unlabeled sets')
     parser.add_argument('--sublabeled-path', type=str, default='', metavar='', help='data - labeled-subset prefix file')
@@ -88,11 +99,11 @@ def add_parser_arguments(parser):
 
     # training
     parser.add_argument('--epochs', type=int, default=1, metavar='', help='train - total epochs')
-    parser.add_argument('--batch-size', type=int, default=16, metavar='', help='train - batch size')
-    parser.add_argument('--unlabeled-batch-size', type=int, default=0, metavar='', help='train - unlabeled samples a batch')
+    parser.add_argument('--batch-size', type=int, default=16, metavar='', help='train - batch size a rank')
+    parser.add_argument('--unlabeled-batch-size', type=int, default=0, metavar='', help='train - unlabeled samples a rank\'s batch')
 
     # autoset
-    parser.add_argument('--n-devices', type=int, default=0, metavar='', help='autoset - devices')
+    parser.add_argument('--n-devices', type=int, default=0, metavar='', help='autoset - ranks')
     parser.add_argument('--task', type=str, default='', metavar='', help='autoset - task name')
     parser.add_argument('--labeled-batch-size', type=int, default=None, metavar='', help='autoset - labeled samples a batch')
     parser.add_argument('--checkpoint-path', type=str, default='', metavar='', help='autoset - checkpoint dir')
@@ -127,7 +138,10 @@ class TaskProxy(object):
         self.data = data
         self.model = model
         self.criterion = criterion
-        self.device = device_util.resolve(device)
+        # the process group forms before any CUDA work of the run
+        self.device = parallel.multihost.initialize(
+            args, device_util.resolve(device))
+        self.mesh = parallel.make_mesh(self.device)
 
         self.train_loader = None
         self.val_loader = None
@@ -204,8 +218,15 @@ class TaskProxy(object):
             args.is_epoch_lrer = (list(args.lrers.values())[0] in
                                   nnlrer.EPOCH_LRERS)
 
-        # one device: batch, lr and workers as the config gives them
-        args.n_devices = 1
+        # batch and lr per rank, scaled by the ranks as the JAX proxy scales
+        # by its mesh; the workers are a rank's own
+        n_dev = self.mesh.world_size
+        args.n_devices = n_dev
+        if n_dev > 1:
+            if getattr(args, 'lr', None) not in (None, -1):
+                args.lr = args.lr * n_dev
+            args.batch_size = args.batch_size * n_dev
+            args.unlabeled_batch_size = args.unlabeled_batch_size * n_dev
         args.labeled_batch_size = args.batch_size - args.unlabeled_batch_size
         if args.labeled_batch_size <= 0:
             logger.log_err('labeled_batch_size = batch_size - '
@@ -216,8 +237,14 @@ class TaskProxy(object):
             exp_dir = os.path.join(args.out_path, args.exp_id or 'exp')
             args.checkpoint_path = os.path.join(exp_dir, 'ckpt')
             os.makedirs(args.checkpoint_path, exist_ok=True)
-            logger.log_file(os.path.join(
-                exp_dir, 'val.log' if args.validation else 'train.log'))
+            if args.visualize:
+                for sub in ('debug', 'train', 'val'):
+                    path = os.path.join(exp_dir, 'visualization', sub)
+                    os.makedirs(path, exist_ok=True)
+                    setattr(args, 'visual_{0}_path'.format(sub), path)
+            if self.mesh.rank == 0:
+                logger.log_file(os.path.join(
+                    exp_dir, 'val.log' if args.validation else 'train.log'))
 
     # ------------------------------------------------------------------
 
@@ -292,11 +319,20 @@ class TaskProxy(object):
                             else list(range(len(trainset))))
                     sampler = nndata.OneStreamBatchSampler(
                         idxs, args.batch_size, seed=args.seed)
+                    lbs, ubs = args.batch_size, 0
                 else:
                     sampler = nndata.TwoStreamBatchSampler(
                         trainset.labeled_idxs, trainset.unlabeled_idxs,
                         args.labeled_batch_size, args.unlabeled_batch_size,
                         seed=args.seed)
+                    lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
+                if self.mesh.world_size > 1:
+                    # every rank walks the same seeded global sequence and
+                    # loads only its own slice (parallel/multihost.py)
+                    sampler = parallel.multihost.ProcessShardedSampler(
+                        sampler, lbs, ubs,
+                        parallel.multihost.local_device_positions(self.mesh),
+                        self.mesh.world_size)
                 self.train_loader = nnloader.DataLoader(
                     trainset, sampler, self.device,
                     num_workers=args.num_workers,
@@ -315,7 +351,7 @@ class TaskProxy(object):
         if valset is not None:
             self.val_loader = _ValLoader(
                 valset, self.device, getattr(args, 'ignore_index', 255),
-                exact=args.exact_val)
+                exact=args.exact_val, mesh=self.mesh)
 
         if self.train_loader is None and not args.validation:
             logger.log_err('Train data loader is required unless validation mode')
@@ -349,15 +385,26 @@ class _ValLoader(object):
     and the metrics), with a ``valid`` mask of 1: the JAX package's bucketed
     mode on one device, whose padding reaches the border pixels' logits.
     ``exact`` gives the sample unpadded and no mask (reference
-    proxy.py:402-403)."""
+    proxy.py:402-403), the same samples on every rank.
+
+    Across W ranks (``mesh``, bucketed mode) batch ``b`` of rank ``r`` is
+    sample ``b*W + r``, the JAX loader's batches of W samples, one a
+    device; past the last sample a rank gets a copy of the last one with
+    an all-ignore label and ``valid`` 0. ``sharded`` tells ``validate`` to
+    sum its counts over the ranks."""
 
     BUCKET = 32
 
-    def __init__(self, dataset, device, ignore_index=255, exact=False):
+    def __init__(self, dataset, device, ignore_index=255, exact=False,
+                 mesh=None):
         self.dataset = dataset
         self.device = device
         self.ignore_index = ignore_index
         self.exact = exact
+        self.rank = mesh.rank if mesh is not None else 0
+        self.world = mesh.world_size if mesh is not None else 1
+        self.sharded = (not exact and mesh is not None and
+                        mesh.distributed)
 
     def _pad(self, arr, fill):
         arr = np.asarray(arr)
@@ -368,14 +415,23 @@ class _ValLoader(object):
             return arr
         return np.pad(arr, pads, mode='constant', constant_values=fill)
 
+    def __len__(self):
+        n = len(self.dataset)
+        return n if self.exact else -(-n // self.world)
+
     def __iter__(self):
-        for i in range(len(self.dataset)):
-            inp, gt = self.dataset[i]
+        n = len(self.dataset)
+        for b in range(len(self)):
+            i = b if self.exact else b * self.world + self.rank
+            inp, gt = self.dataset[min(i, n - 1)]
             valid = None
             if not self.exact:
+                if i >= n:
+                    gt = tuple(np.full_like(np.asarray(g), self.ignore_index)
+                               for g in gt)
                 inp = tuple(self._pad(a, 0.0) for a in inp)
                 gt = tuple(self._pad(g, self.ignore_index) for g in gt)
-                valid = torch.ones(1)
+                valid = torch.full((1,), 1.0 if i < n else 0.0)
             inp = tuple(torch.from_numpy(np.asarray(a)[None]) for a in inp)
             gt = tuple(torch.from_numpy(np.asarray(g)[None]) for g in gt)
             yield nnloader.to_device(inp, gt, self.device, valid)

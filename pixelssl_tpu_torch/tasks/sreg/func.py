@@ -14,15 +14,18 @@ of sseg the identity on the dense float map.
   sseg); the detector reads the map and the RGB input;
 * S4L: the rotation head reads the latent, 4 x ``--base-channels``.
 
-``--visualize`` stays refused (ROADMAP A2c), so ``visualize`` and
-``visualize_pseudo_gt`` are not ported. CCT supports CLASSIFICATION only
-and has no hooks here.
+``visualize`` and ``visualize_pseudo_gt`` (JAX func.py:75-91,122-130)
+write the input clipped to [0, 1] and the maps as 8-bit gray PNGs
+(``(clip(x, 0, 1) * 255).astype(uint8)``). CCT supports CLASSIFICATION
+only and has no hooks here.
 """
 
 import math
 
+import numpy as np
 import torch
 
+from ...nn import imageio
 from ...task_template import func_template
 
 
@@ -31,14 +34,17 @@ def task_func():
 
 
 class PixelRegressionFunc(func_template.TaskFunc):
-    def metrics(self, pred, gt, inp, meters, id_str=''):
+    def metrics(self, pred, gt, inp, meters, id_str='', reduce=None):
         if len(pred) != 1 or len(gt) != 1:
             raise ValueError('sreg metrics take one prediction and one gt')
         p, g = pred[0].float(), gt[0].float()
         valid = (g != float(self.args.ignore_index)).float()
         diff = (p - g) * valid
         sums = torch.stack([diff.square().sum(), diff.abs().sum(),
-                            valid.sum()]).cpu().numpy()
+                            valid.sum()])
+        if reduce is not None:
+            sums = reduce(sums)
+        sums = sums.cpu().numpy()
 
         sums_key = '{0}_err_sums'.format(id_str)
         meters.update(sums_key, sums)
@@ -51,6 +57,31 @@ class PixelRegressionFunc(func_template.TaskFunc):
             key = '{0}_{1}_{2}'.format(id_str, self.METRIC_STR, name)
             meters.reset(key)
             meters.update(key, value)
+
+    def visualize(self, out_path, id_str='', inp=None, pred=None, gt=None):
+        """Input RGB and gray prediction/GT PNGs of the first sample: NCHW
+        tensors (a batch of 1) or unbatched arrays."""
+        def gray(x):
+            x = np.clip(func_template.host_sample(x)[0], 0.0, 1.0)
+            return (x * 255).astype('uint8')
+
+        if inp is not None:
+            im = func_template.host_sample(inp[0]).transpose(1, 2, 0)
+            im = np.clip(im, 0.0, 1.0)
+            imageio.write_png(out_path + '_{0}1-inp.png'.format(id_str),
+                              (im * 255).astype('uint8'))
+        if pred is not None:
+            imageio.write_png(out_path + '_{0}2-pred.png'.format(id_str),
+                              gray(pred[0]))
+        if gt is not None:
+            imageio.write_png(out_path + '_{0}3-gt.png'.format(id_str),
+                              gray(gt[0]))
+
+    def visualize_pseudo_gt(self, pseudo_gt, out_path, id_str=''):
+        """A GCT pseudo-GT [1,H,W,1] (NHWC) as a gray PNG."""
+        p = np.clip(func_template.host_sample(pseudo_gt)[..., 0], 0.0, 1.0)
+        imageio.write_png(out_path + '_{0}-pseudo-gt.png'.format(id_str),
+                          (p * 255).astype('uint8'))
 
     def ssladv_fcd_in_channels(self):
         return 1

@@ -7,14 +7,22 @@ give NHWC.
 
 ``metrics`` builds the confusion matrix on the device; only the C x C
 counts cross to the host. ``device_prep`` normalises ``--u8-transfer``
-batches on the card.
+batches on the card. ``visualize`` and ``visualize_pseudo_gt`` (JAX
+func.py:89-120,165-174) write PNGs through ``nn.imageio.write_png`` with
+the JAX arithmetic: the image ``im * std + mean`` (a uint8 one / 255),
+clipped, ``(x * 255).astype(uint8)``, which truncates; the prediction's
+and the GT's classes coloured by ``VOCColorize``. The JAX package writes
+the GT of a [1,H,W] label batch as a 1 x H image of its first column
+(ROADMAP F12); the port writes the whole [H,W] map.
 """
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...nn import imageio
 from ...ops.confusion import confusion_matrix, scores_from_confusion
 from ...task_template import func_template
 from ...utils import logger
@@ -36,6 +44,11 @@ def _mean_std(device):
 
 
 class SemanticSegmentationFunc(func_template.TaskFunc):
+    def __init__(self, args=None):
+        super(SemanticSegmentationFunc, self).__init__(args)
+        self._colorize = VOCColorize(
+            (args.num_classes if args is not None else 21) + 1)
+
     def device_prep(self, batch):
         """The ``--u8-transfer`` batch made what the algorithms take (JAX
         func.py:48-65): uint8 images normalised on the device with the host
@@ -53,10 +66,11 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
             return batch
         return dict(batch, inp=inp, gt=gt)
 
-    def metrics(self, pred, gt, inp, meters, id_str=''):
-        """Add this batch's confusion matrix to the meter
-        ``{id}_confusion_matrix``; the ``{id}_metric_*`` meters then hold
-        the scores of the summed matrix (reference func.py:36-80)."""
+    def metrics(self, pred, gt, inp, meters, id_str='', reduce=None):
+        """Add this batch's confusion matrix (summed over the ranks by
+        ``reduce`` where given) to the meter ``{id}_confusion_matrix``;
+        the ``{id}_metric_*`` meters then hold the scores of the summed
+        matrix (reference func.py:36-80)."""
         if len(pred) != 1 or len(gt) != 1:
             raise ValueError('sseg metrics take one prediction and one gt')
         gt0 = gt[0]
@@ -64,6 +78,8 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
             gt0 = gt0[:, 0]
         cm = confusion_matrix(pred[0].argmax(dim=1), gt0,
                               self.args.num_classes, self.args.ignore_index)
+        if reduce is not None:
+            cm = reduce(cm)
 
         cm_key = '{0}_confusion_matrix'.format(id_str)
         meters.update(cm_key, cm.cpu().numpy())
@@ -72,6 +88,39 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
             key = '{0}_{1}_{2}'.format(id_str, self.METRIC_STR, name)
             meters.reset(key)
             meters.update(key, scores[name])
+
+    def visualize(self, out_path, id_str='', inp=None, pred=None, gt=None):
+        """``<out_path>_<id>1-inp.png``, ``2-pred`` and ``3-gt`` of the
+        first sample: NCHW tensors (a batch of 1) or unbatched arrays
+        (reference func.py:82-131)."""
+        if inp is not None:
+            im = func_template.host_sample(inp[0]).transpose(1, 2, 0)
+            if im.dtype == np.uint8:  # --u8-transfer: raw RGB
+                im = im / 255.0
+            else:
+                im = im * np.array([0.229, 0.224, 0.225]) + np.array(
+                    [0.485, 0.456, 0.406])
+            im = np.clip(im, 0, 1)
+            imageio.write_png(out_path + '_{0}1-inp.png'.format(id_str),
+                              (im * 255).astype('uint8'))
+        if pred is not None:
+            p = np.argmax(func_template.host_sample(pred[0]), axis=0)
+            imageio.write_png(out_path + '_{0}2-pred.png'.format(id_str),
+                              self._colorize(p))
+        if gt is not None:
+            g = func_template.host_sample(gt[0])
+            if g.ndim == 3:  # [1,H,W]
+                g = g[0]
+            imageio.write_png(out_path + '_{0}3-gt.png'.format(id_str),
+                              self._colorize(g))
+
+    def visualize_pseudo_gt(self, pseudo_gt, out_path, id_str=''):
+        """The coloured argmax of a GCT dynamic-consistency pseudo-GT,
+        [1,H,W,C] (the GCT pipeline's NHWC), as
+        ``<out_path>_<id>-pseudo-gt.png`` (reference func.py:196-202)."""
+        p = func_template.host_sample(pseudo_gt)
+        imageio.write_png(out_path + '_{0}-pseudo-gt.png'.format(id_str),
+                          self._colorize(np.argmax(p, axis=-1)))
 
     def ssladv_fcd_in_channels(self):
         return self.args.num_classes
@@ -141,3 +190,39 @@ class SemanticSegmentationFunc(func_template.TaskFunc):
             return 8
         logger.log_err('sslcct_ad_upsample_scale does not support model '
                        '`{0}`'.format(arch))
+
+
+# ---------------------------------------------------------------------------
+# VOC colormap (reference func.py:306-345, JAX func.py:243-276)
+# ---------------------------------------------------------------------------
+
+def color_map(N=256, normalized=False):
+    def bitget(byteval, idx):
+        return (byteval & (1 << idx)) != 0
+
+    dtype = 'float32' if normalized else 'uint8'
+    cmap = np.zeros((N, 3), dtype=dtype)
+    for i in range(N):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r = r | (bitget(c, 0) << (7 - j))
+            g = g | (bitget(c, 1) << (7 - j))
+            b = b | (bitget(c, 2) << (7 - j))
+            c = c >> 3
+        cmap[i] = np.array([r, g, b])
+    return cmap / 255 if normalized else cmap
+
+
+class VOCColorize(object):
+    def __init__(self, n=22):
+        self.cmap = color_map(256)[:n]
+
+    def __call__(self, gray_image):
+        """int [H,W] -> uint8 [H,W,3]; 255 (void) renders white."""
+        gray = np.asarray(gray_image).astype(np.int32)
+        out = np.zeros(gray.shape + (3,), dtype=np.uint8)
+        for label in range(len(self.cmap)):
+            out[gray == label] = self.cmap[label]
+        out[gray == 255] = 255
+        return out
