@@ -231,22 +231,43 @@ Phases, each printing a line as it ends:
     SupOnly 4+0 and MT 4+4 at ResNet-10 @64 in float32, a validation of 4
     samples on the starting weights (scores rtol 1e-6), then two steps:
     losses rtol 1e-4 (atol 1e-5), parameters and BN statistics atol 1e-5
-    with rtol 1e-4.
+    with rtol 1e-4;
+35. ``--spatial-train 2`` on two gloo ranks sharing the card, each with the
+    rows of every image (``parallel/spatial.py``), against one process on
+    the whole batch: SupOnly 4+0, MT 4+4 with input noise and GCT 4+4 on
+    DeepLab-v2/ResNet-101 @321 in float32, cuDNN deterministic, lr 1e-5,
+    two steps from one set of weights: losses within rtol 2e-3 (the
+    thresholded ones 2e-2; GCT's losses that read the flaw detector on
+    the first step only), the weights after the first step within atol
+    1e-3 (BN statistics 1e-2), the ranks equal, the blur kernel 6 times a
+    GCT step a rank on its strips of rows; each one's step ms, peak memory
+    and the row exchanges' host ms, count and MiB a step;
+36. the 1-8 GCT script (2+2 @321, float32) through ``run_script`` with
+    ``--distributed --spatial-train 2`` on two gloo ranks against the same
+    in one process: 3 iterations and the validation, the first
+    iteration's losses within rtol 2e-3 (fc/dc 2e-2), every lr equal, the
+    later gaps printed, 6 blur launches an iteration a rank, the wall s
+    and peak memory of each;
+37. ``--spatial-val`` on two gloo ranks: SupOnly's DeepLab-v2/ResNet-101
+    validation of two 1025 px images (padded to 1056) in float32 against
+    one process's bucketed validation of the same padded images: losses
+    rtol 1e-5, scores atol 1e-4; the peak memory and ms an image of each.
+    Phase 3 also holds the kernel on the strips of rows of phases 35 and
+    36 ([8,181,321] k=21, [4,201,321] k=41, [4,241,321] k=81 on rank 0,
+    one row fewer on rank 1; the script's at 4+2 samples).
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26 and 33 print their step
-times and peak memory (the harness phases also the peak over the steps after the first, which
-leaves out cuDNN's autotuning of new shapes), and the run its total wall
-time and each phase's.
-Then one JSON line with the kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
-result; so does a host without CUDA or a directory without the port. It
-writes nothing but the kernel build under ``pixelssl_tpu_torch/build/``, and
-the checkpoints and run directories in temporary directories that it
-removes, and the augmentation library under the same directory. The
-processes of phases 33 and 34 run this script again (``--worker``), each
-with a time limit, killed with every process it started past it; a
-failing one fails its phase.
-"""
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33 and 35-37 print
+their step times and peak memory (the harness phases also the peak over the
+steps after the first, which leaves out cuDNN's autotuning of new shapes),
+and the run its total wall time and each phase's. Then one JSON line with
+the kernel's numbers, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero and prints no result; so does a host
+without CUDA or a directory without the port. It writes nothing but the
+kernel build under ``pixelssl_tpu_torch/build/``, and the checkpoints and
+run directories in temporary directories that it removes, and the
+augmentation library under the same directory. The processes of phases
+33-37 run this script again (``--worker``), each with a time limit, killed
+with every process it started past it; a failing one fails its phase. """
 
 import argparse
 import contextlib
@@ -366,12 +387,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/34] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/37] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/34] host for the VOC input path: ' + '  '.join(
+    say('[1/37] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/34] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/37] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -419,11 +440,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/34] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/37] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/34] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/37] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -438,7 +459,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/34] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/37] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -468,7 +489,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/34] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/37] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -511,7 +532,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/34] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/37] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -606,9 +627,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/34]', 'GCT')
+    algo, batch = build_full_width(args, '[5/37]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/34]', 'GCT',
+        algo, batch, steps, '[5/37]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -672,7 +693,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/34] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/37] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -684,7 +705,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/34] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/37] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -737,16 +758,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/34]', 'MT')
+    algo, batch = build_full_width(args, '[7/37]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/34]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/37]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/34]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/37]', 'MT')
     return algo
 
 
@@ -754,8 +775,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/34]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/34]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/37]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/37]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -786,7 +807,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/34] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/37] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -814,7 +835,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/34] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/37] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -843,11 +864,16 @@ def load_script_config(script):
     return runpy.run_path(path)['config']
 
 
+def script_batch(script):
+    """(batch size, unlabeled batch size, image size) of ``script``."""
+    config = load_script_config(script)
+    return (config['batch_size'], config['unlabeled_batch_size'],
+            config['im_size'])
+
+
 def script_blur_cases(script):
     """The blur calls of one GCT step at the batch and size of ``script``."""
-    config = load_script_config(script)
-    return gct_blur_cases(config['batch_size'],
-                          config['unlabeled_batch_size'], config['im_size'])
+    return gct_blur_cases(*script_batch(script))
 
 
 def script_config(script, out, algo_name, samples=None):
@@ -981,7 +1007,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/34]'
+    tag = '[10/37]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -1117,7 +1143,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/34]'
+    tag = '[11/37]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1240,7 +1266,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/34]', what, args, seed, steps)
+        small_card_vs_cpu('[12/37]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1306,7 +1332,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/34] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/37] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1325,9 +1351,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/34]', what)
+        algo, batch = build_full_width(args, '[13/37]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/34]', what, positive)
+            algo, batch, steps, '[13/37]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1341,7 +1367,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/34] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/37] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1350,7 +1376,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/34]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/37]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1441,7 +1467,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/34]', algo, full_width_args(
+                '[14/37]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1453,7 +1479,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/34]'
+    tag = '[15/37]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1498,7 +1524,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/34]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/37]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1538,7 +1564,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/34] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/37] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1561,15 +1587,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/34]', what)
+        algo, batch = build_full_width(args, '[17/37]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/34] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/37] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/34]', what, positive)
+            algo, batch, steps, '[17/37]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1578,7 +1604,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/34] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/37] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1587,7 +1613,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/34]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/37]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1601,7 +1627,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/34]', algos['ssl_cct'], full_width_args(
+            '[18/37]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1613,7 +1639,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/34]'
+    tag = '[19/37]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1904,7 +1930,7 @@ def phase_sreg():
     from pixelssl_tpu_torch.tasks import sreg
     from pixelssl_tpu_torch.utils import logger
 
-    tag = '[23/34]'
+    tag = '[23/37]'
     demo = load_sreg_demo()
     gct_launches = None
     for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
@@ -2002,7 +2028,7 @@ def phase_optimizers(seed, steps):
     import torch
     from pixelssl_tpu_torch import harness
 
-    tag = '[24/34]'
+    tag = '[24/37]'
     for name, flags in OPTIMIZER_CASES:
         args = harness.default_args('ssl_mt', **dict(
             MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
@@ -2102,7 +2128,7 @@ def f32_steps(seed, steps, **flags):
                                unlabeled_batch_size=4,
                                **dict(MT_CONFIG, bf16=False, **flags))
         algo, batch = build_full_width(
-            args, '[25/34]', 'MT float32 ' + (' '.join(sorted(flags)) or
+            args, '[25/37]', 'MT float32 ' + (' '.join(sorted(flags)) or
                                               'plain'))
         losses, stats = [], None
         for s in range(steps):
@@ -2136,7 +2162,7 @@ def phase_sseg_flags(seed, steps):
     import torch
     from pixelssl_tpu_torch.models.resnet import resnet101
 
-    tag = '[25/34]'
+    tag = '[25/37]'
     runs = {}
     for label, flags in (('plain', {}), ('remat', dict(remat=True)),
                          ('bf16_opt_state', dict(bf16_opt_state=True)),
@@ -2490,7 +2516,7 @@ def phase_multi_step(seed):
     from pixelssl_tpu_torch.bench import restore, snapshot
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[26/34]'
+    tag = '[26/37]'
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
@@ -2736,7 +2762,7 @@ def phase_profile_dir():
     import glob
     import tempfile
 
-    tag = '[27/34]'
+    tag = '[27/37]'
     with tempfile.TemporaryDirectory() as out:
         prof_dir = os.path.join(out, 'prof')
         config = script_config(SCRIPT_MT, out, 'ssl_mt', PROFILE_SAMPLES)
@@ -2789,7 +2815,7 @@ def phase_eager_ingest():
     80GB HBM3. Each graph run passes ``script_graph_checks``."""
     import tempfile
 
-    tag = '[28/34]'
+    tag = '[28/37]'
     runs = {}
     for label, eager, n in INGEST_RUNS:
         with tempfile.TemporaryDirectory() as out:
@@ -2833,7 +2859,7 @@ def phase_bench():
 
     from pixelssl_tpu_torch import bench
 
-    tag = '[29/34]'
+    tag = '[29/37]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(['--steps', '8', '--calls', '3', '--cudnn-benchmark'])
@@ -2862,7 +2888,7 @@ def phase_serving():
 
     from pixelssl_tpu_torch.tools import export_serving, infer_bench
 
-    tag = '[30/34]'
+    tag = '[30/37]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         infer_bench.main(['--model', 'deeplabv2', '--backbone', 'resnet101',
@@ -2922,7 +2948,7 @@ def phase_rescore(seed):
     from pixelssl_tpu_torch.scripts import rescore as rescore_mod
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[31/34]'
+    tag = '[31/37]'
     script = 'deeplabv2_pascalvoc_1-8_suponly.py'
     root = os.path.abspath(VOC_FIXTURE)
     args = full_width_args('ssl_null', seed, batch_size=4,
@@ -3103,7 +3129,7 @@ def phase_visualize():
     import tempfile
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[32/34]'
+    tag = '[32/37]'
     launches = {}
     for algo_name, script, n, model_ids, debug in (
             ('ssl_gct', SCRIPT_GCT, 1, ('l', 'r'), GCT_DEBUG),
@@ -3282,7 +3308,7 @@ def phase_distributed():
     the distributed run's blur launches."""
     import tempfile
 
-    tag = '[33/34]'
+    tag = '[33/37]'
     here = os.path.abspath(__file__)
     runs = {}
     for name, cmd in (
@@ -3456,7 +3482,7 @@ def phase_gloo(seed):
     import numpy as np
     import torch
 
-    tag = '[34/34]'
+    tag = '[34/37]'
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as out:
@@ -3506,12 +3532,611 @@ def phase_gloo(seed):
     finally:
         torch.backends.cudnn.deterministic = False
 
+# ---------------------------------------------------------------------------
+# phases 35-37: spatial partitioning (--spatial-train, --spatial-val)
+# ---------------------------------------------------------------------------
+
+SPATIAL_N = 2
+SPATIAL_STEPS = 2
+# lr 1e-5: a random-weight ResNet-101 turns float32 noise into
+# trajectories apart after one step. ``python -m
+# pixelssl_tpu_torch.tools.spatial_spread --backbone resnet101 --im-size 97
+# --lr LR``: one process on 1 against 4 CPU threads parts by 2.0e-2 on the
+# second step's loss at the recipes' 2.5e-4 (BN statistics by 1.86) and by
+# 4.9e-4 at 1e-5 (0.22); two spatial ranks by 1.2e-2 and 1.2e-3
+SPATIAL_LR = 1e-5
+SPATIAL_CASES = (
+    ('ssl_null', dict(NULL_CONFIG, batch_size=4, unlabeled_batch_size=0,
+                      lr=SPATIAL_LR)),
+    ('ssl_mt', dict(MT_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                    ignore_unlabeled=False, gaussian_noise_std=0.1,
+                    lr=SPATIAL_LR)),
+    ('ssl_gct', dict(GCT_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                     lr=SPATIAL_LR)))
+# the thresholded GCT losses and MT's consistency, against one process
+SPATIAL_LOOSE = {'cons_loss', 'l_fc_loss', 'r_fc_loss', 'l_dc_loss',
+                 'r_dc_loss'}
+# GCT's losses that read the flaw detector after its first Adam update,
+# which moves each weight whose gradient is 0 up to float32 noise by the lr
+# either way (``tests/test_torch_parallel.py``'s FD_ATOL): held on the
+# first step, their later gaps printed
+SPATIAL_FD_KEYS = {'l_fc_loss', 'r_fc_loss', 'l_dc_loss', 'r_dc_loss',
+                   'l_fd_loss', 'r_fd_loss'}
+SPATIAL_VAL_SIZE = 1025
+SPATIAL_VAL_SAMPLES = 2
+
+
+def reset_peak():
+    """The peak memory statistic reset after the garbage of earlier phases
+    is collected; returns what the process still holds (their caches)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(held):
+    """The peak memory since ``reset_peak`` above ``held``, what the
+    process held then, in GiB: the same for a fresh worker and for this
+    process."""
+    import torch
+    return (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
+def spatial_blur_cases(batch_size, unlabeled_batch_size, im_size,
+                       rank=0):
+    """(N, H, W, k) of the blur calls of one GCT step on spatial rank
+    ``rank`` of ``SPATIAL_N``: its strip of rows [r0 - R, r1 + R)."""
+    from pixelssl_tpu_torch.parallel import spatial
+    lo, hi = spatial.row_range(im_size, SPATIAL_N, rank)
+    return [(n, hi - lo + 2 * (k // 2), w, k) for n, _, w, k in
+            gct_blur_cases(batch_size, unlabeled_batch_size, im_size)]
+
+
+def spatial_case(algo_name, config, seed, device='cuda'):
+    """Build ``algo_name`` at full width (DeepLab-v2/ResNet-101 OS 16 @321,
+    21 classes) in float32 from ``seed``, on this process's place in the
+    run (a 1 x SPATIAL_N grid under a process group), and take
+    ``SPATIAL_STEPS`` steps on its samples and rows of the global batch,
+    timed; returns the step metrics, the step ms, the peak memory (GiB,
+    from the build on), the blur launches, the algorithm, the row
+    exchanges' host ms, count and MiB a step, and the weights after the
+    first step (``float_state``)."""
+    import numpy as np
+    import torch
+    from pixelssl_tpu_torch import harness
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.parallel import spatial
+
+    distributed = torch.distributed.is_initialized()
+    torch.cuda.synchronize()
+    held = reset_peak()
+    args = full_width_args(algo_name, seed, bf16=False,
+                           spatial_train=SPATIAL_N if distributed else 0,
+                           **config)
+    algo = harness.build_algorithm(args, device=device,
+                                   iters_per_epoch=ITERS_PER_EPOCH)
+    rng = np.random.default_rng(seed)
+    b, s = args.batch_size, args.im_size
+    images = rng.standard_normal((b, s, s, 3)).astype(np.float32)
+    labels = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
+    labels[args.labeled_batch_size:] = -1
+    if distributed:
+        (images, labels), height = spatial.shard_train_batch(
+            (images, labels), args.labeled_batch_size,
+            args.unlabeled_batch_size, algo.mesh)
+        batch = dict(harness._to_batch(images, labels, device),
+                     height=height)
+    else:
+        batch = harness._to_batch(images, labels, device)
+    blur.launches = 0
+    history, step_ms = [], []
+    # the row exchanges' host time (with gloo each waits for the card, and
+    # stages the rows through the host), their count and bytes sent
+    staging = {'s': 0.0, 'calls': 0, 'bytes': 0}
+    exchange = spatial._exchange
+
+    def timed_exchange(mesh, outgoing, incoming, like, dim):
+        t0 = time.perf_counter()
+        out = exchange(mesh, outgoing, incoming, like, dim)
+        staging['s'] += time.perf_counter() - t0
+        staging['calls'] += 1
+        staging['bytes'] += sum(t.numel() * t.element_size()
+                                for t in outgoing.values())
+        return out
+
+    spatial._exchange = timed_exchange
+    first_state = None
+    try:
+        for s in range(SPATIAL_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = algo.train_step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            history.append(loss_values(metrics))
+            if s == 0:
+                spatial._exchange = exchange
+                first_state = float_state(algo)
+                spatial._exchange = timed_exchange
+    finally:
+        spatial._exchange = exchange
+    staging = {'ms': 1e3 * staging['s'] / SPATIAL_STEPS,
+               'calls': staging['calls'] / SPATIAL_STEPS,
+               'mib': staging['bytes'] / SPATIAL_STEPS / 2 ** 20}
+    return (history, step_ms, peak_above(held),
+            blur.launches, algo, staging, first_state)
+
+
+def float_state(algo):
+    """A float32 copy on the host of every module's state (the step counts
+    left out)."""
+    return {k: {n: t.detach().float().cpu().clone()
+                for n, t in m.state_dict().items()
+                if not n.endswith('num_batches_tracked')}
+            for k, m in algo.modules.items()}
+
+
+def worker_spatial(out, seed):
+    """One of phase 35's two ranks: a gloo group from ``torchrun``'s
+    environment, both ranks on card 0, ``spatial_case`` for each of
+    ``SPATIAL_CASES``; each rank checks that its weights equal rank 0's,
+    and rank 0 writes its states. Writes ``rank<r>.pt`` into ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group('gloo')
+    rank = dist.get_rank()
+    result = {}
+    for name, config in SPATIAL_CASES:
+        history, step_ms, peak, launches, algo, staging, first = \
+            spatial_case(name, config, seed, 'cuda:0')
+        flat = torch.cat([t.detach().float().reshape(-1) for m in
+                          algo.modules.values() for t in
+                          m.state_dict().values()])
+        rank0 = flat.clone()
+        dist.broadcast(rank0, src=0)
+        result[name] = {'losses': history, 'step_ms': step_ms,
+                        'peak_gib': peak, 'launches': launches,
+                        'staging': staging,
+                        'equal_to_rank0': bool(torch.equal(rank0, flat)),
+                        'grid': (algo.mesh.data_size, algo.mesh.n_spatial)}
+        if rank == 0:
+            torch.save({'first': first, 'last': float_state(algo)},
+                       os.path.join(out, '{0}.pt'.format(name)))
+        del algo, flat, rank0, first
+        torch.cuda.empty_cache()
+    torch.save(result, os.path.join(out, 'rank{0}.pt'.format(rank)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def state_gap(ours, theirs):
+    """The largest absolute difference of parameters and of running
+    statistics between two ``float_state``s."""
+    gap = {'param': 0.0, 'stat': 0.0}
+    for key, state in theirs.items():
+        for name, value in state.items():
+            kind = 'stat' if 'running_' in name else 'param'
+            gap[kind] = max(gap[kind], float(
+                (ours[key][name] - value).abs().max()))
+    return gap
+
+
+def phase_spatial_train(seed):
+    """``--spatial-train 2`` on two gloo ranks sharing the card
+    (``worker_spatial``) against one process on the whole batch: SupOnly
+    4+0, MT 4+4 with input noise, GCT 4+4 at full width in float32,
+    cuDNN deterministic, two steps from the same weights at lr
+    ``SPATIAL_LR``. The losses of both steps within rtol 2e-3 (the
+    thresholded GCT losses and MT's consistency within 2e-2; GCT's
+    losses that read the flaw detector on the first step only, their
+    later gaps printed), the parameters after the first step within atol
+    1e-3 and the BN statistics within atol 1e-2 (after the second the
+    gaps are printed: a random-weight ResNet-101 magnifies float32 noise
+    step by step, one process against itself too), the ranks equal; each
+    one's step ms and peak memory printed beside one process's. Returns
+    the GCT run's blur launches on rank 0."""
+    import tempfile
+    import torch
+
+    tag = '[35/37]'
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            wall = run_bounded(tag, torchrun(SPATIAL_N) + [
+                os.path.abspath(__file__), '--worker', 'spatial', '--out',
+                out, '--seed', str(seed)])
+            ranks = [torch.load(os.path.join(out, 'rank{0}.pt'.format(r)),
+                                weights_only=False)
+                     for r in range(SPATIAL_N)]
+            say('{0} {1} gloo ranks sharing the card: {2:.1f} s'.format(
+                tag, SPATIAL_N, wall))
+            launches = ranks[0]['ssl_gct']['launches']
+            for name, config in SPATIAL_CASES:
+                history, step_ms, peak, one_launches, algo, _, first = \
+                    spatial_case(name, config, seed)
+                ranks_state = torch.load(os.path.join(
+                    out, '{0}.pt'.format(name)), weights_only=False)
+                gap = state_gap(ranks_state['first'], first)
+                last_gap = state_gap(ranks_state['last'], float_state(algo))
+                del ranks_state, first
+                del algo
+                torch.cuda.empty_cache()
+                worst = {'loss': 0.0, 'loose': 0.0, 'fd_later': 0.0}
+                for rank, result in enumerate(ranks):
+                    r = result[name]
+                    if not r['equal_to_rank0'] or r['grid'] != (1, SPATIAL_N):
+                        raise AssertionError('{0} {1} rank {2}: {3}'.format(
+                            tag, name, rank, r))
+                    if r['launches'] != one_launches:
+                        raise AssertionError('{0} {1} rank {2}: {3} blur '
+                                             'launches, one process {4}'
+                                             .format(tag, name, rank,
+                                                     r['launches'],
+                                                     one_launches))
+                    for s, (a, b) in enumerate(zip(r['losses'], history)):
+                        for k in b:
+                            gap_k = abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                            loose = k in SPATIAL_LOOSE
+                            key = 'loose' if loose else 'loss'
+                            if k in SPATIAL_FD_KEYS and s > 0:
+                                worst['fd_later'] = max(worst['fd_later'],
+                                                        gap_k)
+                                continue
+                            worst[key] = max(worst[key], gap_k)
+                            if not math.isclose(a[k], b[k], rel_tol=(
+                                    2e-2 if loose else 2e-3), abs_tol=1e-6):
+                                raise AssertionError(
+                                    '{0} {1} rank {2} step {3} {4}: {5} vs '
+                                    '{6}'.format(tag, name, rank, s, k, a[k],
+                                                 b[k]))
+                if gap['param'] > 1e-3 or gap['stat'] > 1e-2:
+                    raise AssertionError('{0} {1}: weights differ from one '
+                                         'process by {2}'.format(tag, name,
+                                                                 gap))
+                say('{0} {1} @321 {2}+{3}, 1 x {4} grid: {5} steps equal one '
+                    'process on the whole batch (largest relative loss gap '
+                    '{6:.3g}, thresholded {7:.3g}; after step 0 parameters '
+                    '{8:.3g}, BN statistics {9:.3g}; after the last '
+                    '{10:.3g}, {11:.3g}; the FD-read losses after its first '
+                    'update {13:.3g}); blur launches {12} a rank'.format(
+                        tag, name, config['batch_size'] -
+                        config['unlabeled_batch_size'],
+                        config['unlabeled_batch_size'], SPATIAL_N,
+                        SPATIAL_STEPS, worst['loss'], worst['loose'],
+                        gap['param'], gap['stat'], last_gap['param'],
+                        last_gap['stat'], one_launches, worst['fd_later']))
+                say('{0} {1}: ms a step, one process {2}, ranks {3}; peak '
+                    'memory (above what each held) one process {4:.2f} GiB, '
+                    'a rank {5}'.format(
+                        tag, name, ' '.join('{0:.1f}'.format(t)
+                                            for t in step_ms),
+                        ' / '.join(' '.join('{0:.1f}'.format(t) for t in
+                                            r[name]['step_ms'])
+                                   for r in ranks),
+                        peak, ' / '.join('{0:.2f} GiB'.format(
+                            r[name]['peak_gib']) for r in ranks)))
+                say('{0} {1}: row exchanges a step a rank (host ms, calls, '
+                    'MiB sent): {2}'.format(tag, name, ' / '.join(
+                        '{ms:.1f} ms, {calls:g}, {mib:.1f} MiB'.format(
+                            **r[name]['staging']) for r in ranks)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+    return launches
+
+
+def spatial_script_config(out):
+    """The 1-8 GCT script's config (2+2 @321, 12 samples: 3 iterations and
+    the validation of 12 images) in float32."""
+    config = script_config(SCRIPT_GCT, out, 'ssl_gct')
+    config.update(bf16=False, num_workers=1)
+    return config
+
+
+def gloo_on_card_0():
+    """A gloo group from ``torchrun``'s environment with every rank on card
+    0: ``--distributed`` would take NCCL and ``cuda:<LOCAL_RANK>``, and NCCL
+    puts no two ranks on one card; the proxy keeps a group it finds
+    (``parallel.multihost.initialize``)."""
+    import torch.distributed as dist
+    dist.init_process_group('gloo')
+    os.environ['LOCAL_RANK'] = '0'
+
+
+def worker_spatial_script(out):
+    """One of phase 36's two ranks: the 1-8 GCT script through
+    ``run_script`` with ``--distributed --spatial-train 2``, cuDNN
+    deterministic, both ranks on card 0 over gloo; writes
+    ``rank<r>.json`` into ``out``."""
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.tasks import sseg
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    gloo_on_card_0()
+    run_out = os.path.join(out, 'run')
+    os.makedirs(run_out, exist_ok=True)
+    config = spatial_script_config(run_out)
+    config.update(distributed=True, spatial_train=SPATIAL_N)
+    blur.launches = 0
+    held = reset_peak()
+    t0 = time.perf_counter()
+    proxy = pixelssl_tpu_torch.run_script(
+        config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+        cli_override=False)
+    torch.cuda.synchronize()
+    algo = proxy.ssl_algorithm
+    result = {'launches': blur.launches, 'step': algo.state.step,
+              'wall_s': time.perf_counter() - t0,
+              'peak_gib': peak_above(held),
+              'grid': (algo.mesh.data_size, algo.mesh.n_spatial),
+              'records': read_records(config) if algo.mesh.rank == 0
+              else None}
+    with open(os.path.join(out, 'rank{0}.json'.format(algo.mesh.rank)),
+              'w') as f:
+        json.dump(result, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_spatial_script():
+    """The 1-8 GCT script (2+2 @321, float32) through ``run_script`` with
+    ``--distributed --spatial-train 2`` on two gloo ranks sharing the card,
+    against the same script in one process: 3 iterations and the
+    validation. The first iteration's losses within rtol 2e-3 (the
+    thresholded fc/dc 2e-2), every record's lr equal, the later records'
+    and the validation's gaps printed (scores in [0, 1], losses finite);
+    blur launches 6 an iteration on each rank. Returns rank 0's
+    launches."""
+    import tempfile
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.tasks import sseg
+
+    tag = '[36/37]'
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            wall = run_bounded(tag, torchrun(SPATIAL_N) + [
+                os.path.abspath(__file__), '--worker', 'spatial_script',
+                '--out', out])
+            ranks = []
+            for r in range(SPATIAL_N):
+                with open(os.path.join(out, 'rank{0}.json'.format(r))) as f:
+                    ranks.append(json.load(f))
+            one_out = os.path.join(out, 'one')
+            os.makedirs(one_out)
+            config = spatial_script_config(one_out)
+            blur.launches = 0
+            torch.cuda.synchronize()
+            held = reset_peak()
+            t0 = time.perf_counter()
+            proxy = pixelssl_tpu_torch.run_script(
+                config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+                cli_override=False)
+            torch.cuda.synchronize()
+            one_wall = time.perf_counter() - t0
+            one_peak = peak_above(held)
+            one_launches = blur.launches
+            one_records = read_records(config)
+            iters = len(proxy.train_loader)
+            del proxy
+        gaps = {'first': 0.0, 'first_loose': 0.0, 'later': 0.0,
+                'val_loss': 0.0, 'score': 0.0}
+        records = ranks[0]['records']
+        if [r['phase'] for r in records] != \
+                [r['phase'] for r in one_records]:
+            raise AssertionError('{0} records {1} vs {2}'.format(
+                tag, records, one_records))
+        for a, b in zip(records, one_records):
+            if b['phase'] == 'train' and a['lr'] != b['lr']:
+                raise AssertionError('{0} iteration {1}: lr {2} vs {3}'
+                                     .format(tag, b['iter'], a['lr'],
+                                             b['lr']))
+            for k, v in b.items():
+                if 'metric' in k:
+                    if not 0.0 <= a[k] <= 1.0:
+                        raise AssertionError('{0} {1} = {2}'.format(
+                            tag, k, a[k]))
+                    gaps['score'] = max(gaps['score'], abs(a[k] - v))
+                    continue
+                if not k.endswith('_loss'):
+                    continue
+                if not math.isfinite(a[k]):
+                    raise AssertionError('{0} {1} = {2}'.format(tag, k,
+                                                                a[k]))
+                gap = abs(a[k] - v) / max(abs(v), 1e-12)
+                if b['phase'] == 'val':
+                    gaps['val_loss'] = max(gaps['val_loss'], gap)
+                elif b['iter'] > 1:
+                    gaps['later'] = max(gaps['later'], gap)
+                else:
+                    loose = '_fc_' in k or '_dc_' in k
+                    key = 'first_loose' if loose else 'first'
+                    gaps[key] = max(gaps[key], gap)
+                    if not (gap <= (2e-2 if loose else 2e-3) or
+                            abs(a[k] - v) <= 1e-6):
+                        raise AssertionError('{0} iteration 1 {1}: {2} vs '
+                                             '{3}'.format(tag, k, a[k], v))
+        for rank, r in enumerate(ranks):
+            if r['grid'] != [1, SPATIAL_N] or r['step'] != iters or \
+                    r['launches'] != BLUR_LAUNCHES_PER_STEP * iters:
+                raise AssertionError('{0} rank {1}: {2}'.format(
+                    tag, rank, {k: v for k, v in r.items()
+                                if k != 'records'}))
+        say('{0} GCT script @321 2+2, --distributed --spatial-train {1} on '
+            '{1} gloo ranks ({2:.1f} s): {3} iterations and validation; the '
+            'first iteration\'s losses equal one process\'s (largest '
+            'relative gap {4:.3g}, thresholded {5:.3g}), the lr of every '
+            'record equal; later records {6:.3g}, val losses {7:.3g}, '
+            'scores {8:.3g} apart (the recipe\'s lr from random weights and '
+            'the FD\'s Adam magnify the float32 difference step by step, '
+            'phase 35); blur launches {9} a rank, one process {10}'.format(
+                tag, SPATIAL_N, wall, iters, gaps['first'],
+                gaps['first_loose'], gaps['later'], gaps['val_loss'],
+                gaps['score'], ranks[0]['launches'], one_launches))
+        say('{0} run_script wall s: one process {1:.1f}, ranks {2}; peak '
+            'memory (above what each held) one process {3:.2f} GiB, a rank '
+            '{4}'.format(
+                tag, one_wall, ' / '.join('{0:.1f}'.format(r['wall_s'])
+                                          for r in ranks), one_peak,
+                ' / '.join('{0:.2f} GiB'.format(r['peak_gib'])
+                           for r in ranks)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+    return ranks[0]['launches']
+
+
+def spatial_val_config(out, seed):
+    """SupOnly on DeepLab-v2/ResNet-101 @``SPATIAL_VAL_SIZE`` (padded to
+    the 32-px bucket, 1056), 21 classes, float32, validation only of
+    ``SPATIAL_VAL_SAMPLES`` synthetic images, random weights from
+    ``seed``."""
+    import collections
+    return collections.OrderedDict([
+        ('exp_id', 'spatial_val'), ('out_path', out),
+        ('ssl_algorithm', 'ssl_null'), ('validation', True),
+        ('trainset', {'synthetic_sseg': ['synthetic']}),
+        ('valset', {'synthetic_sseg': ['synthetic']}),
+        ('synthetic_samples', SPATIAL_VAL_SAMPLES),
+        ('models', {'model': 'deeplabv2'}),
+        ('optimizers', {'model': 'sgd'}),
+        ('lrers', {'model': 'polynomiallr'}),
+        ('criterions', {'model': 'sseg_criterion'}),
+        ('backbone', 'resnet101'), ('output_stride', 16),
+        ('im_size', SPATIAL_VAL_SIZE), ('num_classes', 21),
+        ('batch_size', 1), ('unlabeled_batch_size', 0), ('bf16', False),
+        ('lr', 2.5e-4), ('num_workers', 0), ('seed', seed)])
+
+
+def spatial_val_run(config):
+    """``run_script`` of ``config``; (scores and losses, wall s, peak GiB,
+    the eval forward's ms per image)."""
+    import torch
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.tasks import sseg
+
+    torch.cuda.synchronize()
+    held = reset_peak()
+    t0 = time.perf_counter()
+    proxy = pixelssl_tpu_torch.run_script(
+        config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+        cli_override=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    algo = proxy.ssl_algorithm
+    scores = {k: m.avg for k, m in algo.meters.items()
+              if 'metric' in k or k.endswith('_loss')}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    algo.validate(proxy.val_loader, 0)
+    end.record()
+    torch.cuda.synchronize()
+    return (scores, wall, peak_above(held),
+            start.elapsed_time(end) / len(proxy.val_loader))
+
+
+def worker_spatial_val(out, seed):
+    """One of phase 37's two ranks: ``spatial_val_config`` with
+    ``--spatial-val --distributed``, both ranks on card 0 over gloo; writes
+    ``rank<r>.json``."""
+    import torch
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    gloo_on_card_0()
+    config = spatial_val_config(os.path.join(out, 'run'), seed)
+    config.update(spatial_val=True, distributed=True)
+    scores, wall, peak, ms = spatial_val_run(config)
+    rank = torch.distributed.get_rank()
+    with open(os.path.join(out, 'rank{0}.json'.format(rank)), 'w') as f:
+        json.dump({'scores': scores, 'wall_s': wall, 'peak_gib': peak,
+                   'ms_per_image': ms}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_spatial_val(seed):
+    """``--spatial-val`` on two gloo ranks sharing the card against one
+    process's bucketed validation of the same padded images: SupOnly on
+    DeepLab-v2/ResNet-101 at 1025 px (padded to 1056), float32, cuDNN
+    deterministic; losses rtol 1e-5, scores atol 1e-4 (a pixel whose best
+    two logits tie to float noise may take the other class); each one's
+    peak memory and ms an image printed."""
+    import tempfile
+    import torch
+
+    tag = '[37/37]'
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            wall = run_bounded(tag, torchrun(SPATIAL_N) + [
+                os.path.abspath(__file__), '--worker', 'spatial_val',
+                '--out', out, '--seed', str(seed)])
+            ranks = []
+            for r in range(SPATIAL_N):
+                with open(os.path.join(out, 'rank{0}.json'.format(r))) as f:
+                    ranks.append(json.load(f))
+            scores, one_wall, one_peak, one_ms = spatial_val_run(
+                spatial_val_config(os.path.join(out, 'one'), seed))
+        gaps = {'loss': 0.0, 'score': 0.0}
+        for rank, r in enumerate(ranks):
+            if set(r['scores']) != set(scores):
+                raise AssertionError('{0} rank {1}: {2} vs {3}'.format(
+                    tag, rank, r['scores'], scores))
+            for k, v in scores.items():
+                a = r['scores'][k]
+                if k.endswith('_loss'):
+                    gaps['loss'] = max(gaps['loss'], abs(a - v) / abs(v))
+                    ok = math.isclose(a, v, rel_tol=1e-5)
+                else:
+                    gaps['score'] = max(gaps['score'], abs(a - v))
+                    ok = abs(a - v) <= 1e-4
+                if not ok:
+                    raise AssertionError('{0} rank {1} {2}: {3} vs {4}'
+                                         .format(tag, rank, k, a, v))
+        say('{0} --spatial-val on {1} gloo ranks ({2:.1f} s), DeepLab-v2/'
+            'ResNet-101 @{3} (padded to {8}), {4} images: equal to one '
+            'process (largest loss gap {5:.3g} relative, score gap {6:.3g}); '
+            '{7}'.format(tag, SPATIAL_N, wall, SPATIAL_VAL_SIZE,
+                         SPATIAL_VAL_SAMPLES, gaps['loss'], gaps['score'],
+                         '  '.join('{0} {1:.5f}'.format(k, v) for k, v in
+                                   sorted(scores.items())),
+                         -(-SPATIAL_VAL_SIZE // 32) * 32))
+        say('{0} peak memory (above what each held) one process {1:.2f} '
+            'GiB, a rank {2}; ms an image one process {3:.1f}, ranks {4}'
+            .format(
+                tag, one_peak, ' / '.join('{0:.2f} GiB'.format(r['peak_gib'])
+                                          for r in ranks), one_ms,
+                ' / '.join('{0:.1f}'.format(r['ms_per_image'])
+                           for r in ranks)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
     # the processes that phases 33 and 34 start run this script again
-    parser.add_argument('--worker', choices=('gct', 'gloo'),
+    parser.add_argument('--worker', choices=('gct', 'gloo', 'spatial',
+                                             'spatial_script',
+                                             'spatial_val'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--out', help=argparse.SUPPRESS)
     parser.add_argument('--distributed', action='store_true',
@@ -3545,6 +4170,15 @@ def main(argv=None):
     if opts.worker == 'gloo':
         worker_gloo(opts.out, opts.seed)
         return 0
+    if opts.worker == 'spatial':
+        worker_spatial(opts.out, opts.seed)
+        return 0
+    if opts.worker == 'spatial_script':
+        worker_spatial_script(opts.out)
+        return 0
+    if opts.worker == 'spatial_val':
+        worker_spatial_val(opts.out, opts.seed)
+        return 0
     torch.backends.cudnn.benchmark = True
 
     t_start = time.perf_counter()
@@ -3563,7 +4197,12 @@ def main(argv=None):
             'script_gct': script_blur_cases(SCRIPT_GCT),
             'pspnet_gct': script_blur_cases(SCRIPT_PSP_GCT),
             'sreg_gct': sreg_blur_cases(),
-            'visualize_gct': script_debug_blur_cases(SCRIPT_GCT)})
+            'visualize_gct': script_debug_blur_cases(SCRIPT_GCT),
+            'spatial_gct': spatial_blur_cases(*GCT_BATCH, IM_SIZE),
+            'spatial_gct_rank1': spatial_blur_cases(*GCT_BATCH, IM_SIZE,
+                                                    rank=1),
+            'spatial_script_gct': spatial_blur_cases(
+                *script_batch(SCRIPT_GCT))})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -3583,12 +4222,12 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/34]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/34]', SCRIPT_GCT, 'ssl_gct',
+        run('20', phase_voc, '[20/37]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/37]', SCRIPT_GCT, 'ssl_gct',
                            BLUR_LAUNCHES_PER_STEP, multi=True,
                            native_augment=True, decoded_cache=True,
                            u8_transfer=True)
-        run('22', phase_voc, '[22/34]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('22', phase_voc, '[22/37]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
         sreg_launches = run('23', phase_sreg)
         run('24', phase_optimizers, opts.seed, STEPS)
         run('25', phase_sseg_flags, opts.seed, STEPS)
@@ -3601,6 +4240,9 @@ def main(argv=None):
         visual_launches = run('32', phase_visualize)
         dist_launches = run('33', phase_distributed)
         run('34', phase_gloo, opts.seed)
+        spatial_launches = run('35', phase_spatial_train, opts.seed)
+        spatial_script_launches = run('36', phase_spatial_script)
+        run('37', phase_spatial_val, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -3641,6 +4283,13 @@ def main(argv=None):
     # phase 33's distributed GCT runs: the script's shapes, launches of its
     # two runs (eager, and through the CUDA graph)
     distributed_step = dict(script_step, launches=dist_launches)
+    # phase 35's GCT under --spatial-train 2 (8+4 @321 in float32): rank
+    # 0's strips of rows; launches over its 2 steps on rank 0. Phase 36's
+    # GCT script the same at 2+2, launches over its 3 iterations on rank 0
+    spatial_step = per_step('spatial_gct')
+    spatial_step['launches'] = spatial_launches
+    spatial_script_step = per_step('spatial_script_gct')
+    spatial_script_step['launches'] = spatial_script_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -3675,7 +4324,14 @@ def main(argv=None):
                'visualize_gct, launches over both runs of phase 32 (steps '
                'and visualizations); distributed_gct: the GCT script under '
                '--distributed at world size 1 (phase 33), shapes of '
-               'script_gct, launches over its eager and graph runs',
+               'script_gct, launches over its eager and graph runs; '
+               'spatial_gct: a GCT step of phase 35 under --spatial-train 2 '
+               '(8+4 @321) on rank 0, 2x each call of path spatial_gct '
+               '(its strips of rows [r0-R, r1+R); rank 1\'s in path '
+               'spatial_gct_rank1), launches over its 2 steps on rank 0; '
+               'spatial_script_gct: the same for the GCT script under '
+               '--spatial-train 2 (phase 36, 2+2), launches over its 3 '
+               'iterations on rank 0',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
@@ -3683,9 +4339,11 @@ def main(argv=None):
         'multi_step_gct': multi_step,
         'visualize_gct': visualize_step,
         'distributed_gct': distributed_step,
+        'spatial_gct': spatial_step,
+        'spatial_script_gct': spatial_script_step,
         'calls': rows,
     }
-    say('chip_smoke: all 34 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 37 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

@@ -12,6 +12,11 @@ Every algorithm of ``ssl_algorithm.SSL_ALGORITHMS`` builds this way, each
 with its own flags as overrides (``harness.default_args('ssl_adv',
 adv_for_labeled=True, ...)``). Every entry point runs on the card unless
 the caller passes ``device='cpu'``.
+
+With ``spatial_train=N`` in ``args`` and a process group of W ranks (formed
+by the caller), ``build_algorithm`` builds on the (W/N x N) grid and
+``synthetic_batch`` gives this rank its samples and rows of the global
+batch, with ``batch['height']`` (``parallel.spatial``).
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import torch
 
 from . import runner
 from .nn import loader as nnloader
+from .parallel import spatial
 from .utils import device as device_util
 
 _TASK_DEFAULTS = {
@@ -74,7 +80,8 @@ def synthetic_batch(args, device='cuda', seed=0):
     """One synthetic two-stream train batch, labeled first: the numpy draws
     of the JAX harness's ``synthetic_batch``, as NCHW images and, for
     ``sseg``, [N,H,W] int64 labels (-1 on the unlabeled rows), for
-    ``sreg`` [N,1,H,W] float32 maps in [0, 1) (0 on the unlabeled rows)."""
+    ``sreg`` [N,1,H,W] float32 maps in [0, 1) (0 on the unlabeled rows).
+    Under ``spatial_train`` this rank's samples and rows of it."""
     device = device_util.resolve(device)
     rng = np.random.default_rng(seed)
     b, s = args.batch_size, args.im_size
@@ -87,6 +94,12 @@ def synthetic_batch(args, device='cuda', seed=0):
         gt = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
         if args.unlabeled_batch_size > 0:
             gt[args.labeled_batch_size:] = -1
+    n_spatial = int(getattr(args, 'spatial_train', 0) or 0)
+    if n_spatial > 1:
+        (img, gt), height = spatial.shard_train_batch(
+            (img, gt), args.labeled_batch_size, args.unlabeled_batch_size,
+            spatial.grid_position(n_spatial))
+        return dict(_to_batch(img, gt, device), height=height)
     return _to_batch(img, gt, device)
 
 

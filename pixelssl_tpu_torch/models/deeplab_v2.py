@@ -7,12 +7,17 @@ Four parallel 3x3 convs with bias and dilations (6,12,18,24), summed
 (deeplab_v2.py:32). With ``bf16`` the convolutions run under bf16 autocast
 on the card, as the JAX package's default ``--bf16`` runs them; parameters,
 BN statistics and the output stay float32.
+
+Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
+of images of the context's height: the backbone and ASPP run row-sharded
+(``models/layers.py``) and the logits are resized to the global input size.
 """
 
 import torch
 import torch.nn as nn
 
-from .layers import bf16_autocast, resize_bilinear
+from ..parallel import spatial
+from .layers import Conv2d, bf16_autocast, resize_bilinear
 from .resnet import build_backbone
 
 
@@ -20,8 +25,8 @@ class ASPPClassifier(nn.Module):
     def __init__(self, in_channels, num_classes, dilations=(6, 12, 18, 24)):
         super(ASPPClassifier, self).__init__()
         self.conv2d_list = nn.ModuleList(
-            nn.Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
-                      bias=True)
+            Conv2d(in_channels, num_classes, 3, padding=d, dilation=d,
+                   bias=True)
             for d in dilations)
 
     def init_weights(self, generator=None):
@@ -30,10 +35,10 @@ class ASPPClassifier(nn.Module):
                 conv.weight.normal_(0.0, 0.01, generator=generator)
                 conv.bias.zero_()
 
-    def forward(self, x):
-        out = self.conv2d_list[0](x)
+    def forward(self, x, h=None):
+        out = self.conv2d_list[0](x, h)
         for conv in self.conv2d_list[1:]:
-            out = out + conv(x)
+            out = out + conv(x, h)
         return out
 
 
@@ -52,9 +57,11 @@ class DeepLabV2(nn.Module):
         self.classifier.init_weights(generator)
 
     def forward(self, x):
+        h = spatial.global_height(x)
+        h4 = self.backbone.out_height(h)
         with bf16_autocast(x, self.bf16):
-            bx = self.backbone(x)
-            logits = self.classifier(bx)
-        logits = resize_bilinear(logits.float(), x.shape[2:],
-                                 align_corners=True)
+            bx = self.backbone(x, h)
+            logits = self.classifier(bx, h4)
+        logits = resize_bilinear(logits.float(), (h, x.shape[3]),
+                                 align_corners=True, h=h4)
         return logits, bx

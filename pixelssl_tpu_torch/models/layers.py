@@ -14,6 +14,17 @@ NCHW.
   differentiates through that sum, as the JAX layer ``psum``s them.
 * ``resize_bilinear``: both ``align_corners`` conventions. ``F.interpolate``
   is the same two-tap arithmetic as the JAX interpolation matrices.
+* Row-sharded forms (``parallel.spatial``): inside ``spatial.sharded`` the
+  input of each is this rank's rows of a map whose global height ``h`` the
+  caller passes, and the output is its rows of the output map. ``Conv2d``
+  (an ``nn.Conv2d``, same parameters and names) and ``max_pool2d`` fetch
+  the rows their output rows' windows read, zero- or -inf-filled outside
+  the map, and run with padding 0 along H; a 1x1 stride-1 convolution
+  needs no rows of another rank. The ``align_corners=True``
+  ``resize_bilinear`` reads input rows ``floor/ceil(y * (h_in - 1) /
+  (h_out - 1))`` of the global heights. ``SyncBatchNorm`` with ``sync``
+  sums over every rank, which under ``--spatial-train`` is the grid.
+  Outside a context these are the plain functions.
 * ``resize_nearest``: source index ``i * in // out`` in integers, a gather;
   ``F.interpolate(mode='nearest')`` takes ``floor(i * (in / out))`` in
   floating point, which can round to another pixel.
@@ -32,13 +43,15 @@ NCHW.
   cache off while a CUDA graph captures the step.
 """
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import all_sum
+from ..parallel import all_sum, spatial
 
 
 def bf16_autocast(x, enabled=True):
@@ -118,13 +131,135 @@ class SyncBatchNorm(nn.BatchNorm2d):
                 self.bias[None, :, None, None]).to(x.dtype)
 
 
-def resize_bilinear(x, size, align_corners=False):
-    """Bilinear resize of [N,C,H,W] to spatial ``size`` (h, w)."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a row-sharded form: ``forward(x, h)`` inside a
+    ``spatial.sharded`` block takes this rank's rows of a map ``h`` rows
+    high and gives its rows of the output map (``out_height(h)`` rows)."""
+
+    def out_height(self, h):
+        if h is None:
+            return None
+        return spatial.conv_out(h, self.kernel_size[0], self.stride[0],
+                                self.padding[0], self.dilation[0])
+
+    def forward(self, x, h=None):
+        rows = spatial.active()
+        (k, _), (s, sw), (p, pw), (d, dw) = (self.kernel_size, self.stride,
+                                             self.padding, self.dilation)
+        if rows is None or (k == 1 and s == 1 and p == 0):
+            return super(Conv2d, self).forward(x)
+        mesh = rows.mesh
+        requests = spatial.window_rows(self.out_height(h), mesh.n_spatial,
+                                       s, p, d * (k - 1) + 1)
+        xr = spatial.fetch_rows(x, h, requests, mesh, spatial.ZERO)
+        if xr.shape[2] == 0:
+            return _no_rows(xr, self.out_channels,
+                            spatial.conv_out(x.shape[3], self.kernel_size[1],
+                                             sw, pw, dw),
+                            [p for p in (self.weight, self.bias)
+                             if p is not None])
+        return F.conv2d(xr, self.weight, self.bias, (s, sw), (0, pw),
+                        (d, dw), self.groups)
+
+
+def _no_rows(fetched, channels, width, params=()):
+    """An output of no rows that stays in the graph of the (empty) fetch,
+    so that the fetch's backward, an exchange every rank joins, runs on
+    this rank too, and of the layer's ``params``, which get a gradient of
+    0 as on the ranks with rows (the gradients' all-reduce takes the same
+    tensors on every rank)."""
+    out = fetched.new_zeros((fetched.shape[0], channels, 0, width))
+    return out + sum((p.sum() for p in params), fetched.sum()) * 0
+
+
+def max_pool2d(x, kernel_size, stride, padding=0, h=None):
+    """``F.max_pool2d`` with square windows; inside a ``spatial.sharded``
+    block the row-sharded form on a map ``h`` rows high (-inf outside the
+    map, as the padding of ``F.max_pool2d``)."""
+    rows = spatial.active()
+    if rows is None:
+        return F.max_pool2d(x, kernel_size, stride=stride, padding=padding)
+    mesh = rows.mesh
+    h_out = spatial.conv_out(h, kernel_size, stride, padding)
+    requests = spatial.window_rows(h_out, mesh.n_spatial, stride, padding,
+                                   kernel_size)
+    xr = spatial.fetch_rows(x, h, requests, mesh, spatial.NEG_INF)
+    if xr.shape[2] == 0:
+        return _no_rows(xr, x.shape[1], spatial.conv_out(
+            x.shape[3], kernel_size, stride, padding))
+    return F.max_pool2d(xr, kernel_size, stride=stride,
+                        padding=(0, padding))
+
+
+def pool_out_height(h, kernel_size, stride, padding=0):
+    return None if h is None else spatial.conv_out(h, kernel_size, stride,
+                                                  padding)
+
+
+def resize_bilinear(x, size, align_corners=False, h=None):
+    """Bilinear resize of [N,C,H,W] to spatial ``size`` (h, w). Inside a
+    ``spatial.sharded`` block ``size`` is the global output size and ``h``
+    the global height of the input, of which ``x`` holds this rank's
+    rows (``align_corners=True`` only)."""
     size = tuple(int(s) for s in size)
+    rows = spatial.active()
+    if rows is not None:
+        return _resize_rows(x, size, h, align_corners, rows.mesh)
     if tuple(x.shape[2:]) == size:
         return x
     return F.interpolate(x, size=size, mode='bilinear',
                          align_corners=align_corners)
+
+
+@functools.lru_cache(maxsize=256)
+def _align_corners_taps(h_in, h_out):
+    """Per output row of an ``align_corners=True`` resize: the two input
+    rows it reads and the weight of the second, in float32 as PyTorch's
+    kernel computes them (``area_pixel_compute_scale``)."""
+    scale = (np.float32(h_in - 1) / np.float32(h_out - 1) if h_out > 1
+             else np.float32(0.0))
+    src = scale * np.arange(h_out, dtype=np.float32)
+    i0 = np.minimum(np.floor(src).astype(np.int64), h_in - 1)
+    i1 = np.minimum(i0 + 1, h_in - 1)
+    return i0, i1, (src - i0.astype(np.float32)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _row_taps(h_in, h_out, o0, o1, device):
+    """``_align_corners_taps`` of output rows [o0, o1) on ``device``, the
+    row indices counted from the first row they read."""
+    i0, i1, lam = _align_corners_taps(h_in, h_out)
+    a = int(i0[o0])
+    return (torch.from_numpy(i0[o0:o1] - a).to(device),
+            torch.from_numpy(i1[o0:o1] - a).to(device),
+            torch.from_numpy(lam[o0:o1]).to(device).reshape(1, 1, -1, 1))
+
+
+def _resize_rows(x, size, h, align_corners, mesh):
+    if not align_corners:
+        raise NotImplementedError(
+            'the row-sharded resize takes align_corners=True only (ROADMAP '
+            'A4c-3)')
+    h_out, w_out = size
+    if h == h_out and x.shape[3] == w_out:
+        return x
+    i0, i1, _ = _align_corners_taps(int(h), int(h_out))
+    requests = []
+    for q in range(mesh.n_spatial):
+        o0, o1 = spatial.row_range(h_out, mesh.n_spatial, q)
+        requests.append((int(i0[o0]), int(i1[o1 - 1]) + 1) if o1 > o0
+                        else (0, 0))
+    xr = spatial.fetch_rows(x, h, requests, mesh, spatial.ZERO)
+    o0, o1 = spatial.local_rows(h_out, mesh)
+    if o1 == o0:
+        return _no_rows(xr, x.shape[1], w_out)
+    idx0, idx1, weight = _row_taps(int(h), int(h_out), o0, o1, x.device)
+    y = xr.index_select(2, idx0) * (1.0 - weight) + \
+        xr.index_select(2, idx1) * weight
+    if x.shape[3] != w_out:
+        y = F.interpolate(y, size=(o1 - o0, w_out), mode='bilinear',
+                          align_corners=True)
+    return y
 
 
 def resize_nearest(x, size):

@@ -13,6 +13,12 @@ package's ``nn.remat`` does (its resnet.py:71-94): the backward pass
 recomputes each block's activations from its input. The recompute runs
 the block's BatchNorms with ``update_stats`` off, so that the running
 statistics move once a forward, as without remat.
+
+Under ``--spatial-train`` and ``--spatial-val`` (``parallel.spatial``) the
+forward takes this rank's rows of the input and the global height ``h``,
+and each layer passes on its output's (``Conv2d``, ``max_pool2d``): the
+stem, the max pool, the strided and dilated 3x3 convolutions and the
+strided 1x1 downsample fetch the rows of other ranks their windows read.
 """
 
 import contextlib
@@ -24,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import SyncBatchNorm
+from .layers import Conv2d, SyncBatchNorm, max_pool2d, pool_out_height
 
 
 def conv_init_(conv, generator=None):
@@ -44,24 +50,29 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1,
                  has_downsample=False):
         super(Bottleneck, self).__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = SyncBatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride,
+                            padding=dilation, dilation=dilation, bias=False)
         self.bn2 = SyncBatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = SyncBatchNorm(planes * 4)
         self.downsample = None
         if has_downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+                Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
                 SyncBatchNorm(planes * 4))
 
-    def forward(self, x):
+    def out_height(self, h):
+        return self.conv2.out_height(h)
+
+    def forward(self, x, h=None):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(self.conv2(out, h)))
         out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](self.downsample[0](x, h))
         return F.relu(out + residual)
 
 
@@ -97,7 +108,7 @@ class ResNet(nn.Module):
         else:
             raise NotImplementedError(
                 'output_stride must be 8 or 16, got {0}'.format(output_stride))
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = SyncBatchNorm(64)
 
         inplanes = 64
@@ -123,18 +134,32 @@ class ResNet(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+    def blocks(self):
+        return [block for layer in (self.layer1, self.layer2, self.layer3,
+                                    self.layer4) for block in layer]
+
+    def out_height(self, h):
+        """The global height of the layer4 map of an input ``h`` rows
+        high."""
+        h = pool_out_height(self.conv1.out_height(h), 3, 2, 1)
+        for block in self.blocks():
+            h = block.out_height(h)
+        return h
+
+    def forward(self, x, h=None):
+        x = F.relu(self.bn1(self.conv1(x, h)))
+        h = self.conv1.out_height(h)
+        x = max_pool2d(x, 3, 2, 1, h)
+        h = pool_out_height(h, 3, 2, 1)
         remat = self.remat and torch.is_grad_enabled()
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            for block in layer:
-                if remat:
-                    x = checkpoint(block, x, use_reentrant=False,
-                                   context_fn=functools.partial(
-                                       _recompute_contexts, block))
-                else:
-                    x = block(x)
+        for block in self.blocks():
+            if remat:
+                x = checkpoint(block, x, h, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   _recompute_contexts, block))
+            else:
+                x = block(x, h)
+            h = block.out_height(h)
         return x
 
 

@@ -18,7 +18,11 @@ counts them in the dataset, which its loader threads share; a worker
 process would count only its own). Under ``--distributed`` the batch
 sampler is a ``parallel.multihost.ProcessShardedSampler``: each rank
 counts the accesses of the whole global batch, then loads its own slice
-(``shard``), so that a sample's draw is the one-process run's. ``to_device`` then makes a batch what
+(``shard``), so that a sample's draw is the one-process run's. Under
+``--spatial-train`` (``rows_of``, the grid) the slice is the samples of the
+rank's data coordinate, and the rank keeps its rows of them on the host
+before the copy; the batch carries the global height (``'height'``).
+``to_device`` then makes a batch what
 the algorithms take: NCHW images and int64 labels on the device, copied
 with ``non_blocking`` from pinned memory on the current stream and
 permuted there. uint8 images and labels (``--u8-transfer``) stay uint8
@@ -40,6 +44,8 @@ import threading
 import numpy as np
 import torch
 import torch.utils.data
+
+from ..parallel import spatial
 
 # how the worker processes start: forked, the first batch of a run waits
 # 0.4 s on an H100 host; spawned, 8 s, each worker importing torch and the
@@ -198,8 +204,9 @@ class DataLoader(object):
     as the module docstring says."""
 
     def __init__(self, dataset, batch_sampler, device, num_workers=0,
-                 eager_ingest=False):
+                 eager_ingest=False, rows_of=None):
         self.batch_sampler = batch_sampler
+        self.rows_of = rows_of
         self.device = torch.device(device)
         self.eager_ingest = bool(eager_ingest)
         self._epoch = _EpochBatches()
@@ -225,7 +232,15 @@ class DataLoader(object):
 
     def _batches(self):
         for inp, gt in self.loader:
-            yield to_device(inp, gt, self.device)
+            if self.rows_of is None:
+                yield to_device(inp, gt, self.device)
+                continue
+            height = int(inp[0].shape[1])
+            batch = to_device(spatial.host_rows(inp, self.rows_of),
+                              spatial.host_rows(gt, self.rows_of),
+                              self.device)
+            batch['height'] = height
+            yield batch
 
     def __iter__(self):
         # the epoch's keys are counted when it starts, over the global

@@ -18,6 +18,14 @@ the reflect boundary, ``out[n] = Bh @ X[n] @ Bw^T``, computed in float32:
 * on a CPU tensor it runs the plain version ``blur_plain``: the two dense
   banded products from ``_blur_matrix``, as the JAX einsum branch does.
 
+Inside a ``parallel.spatial.sharded`` block (``--spatial-train``) the map
+is this rank's rows [r0, r1) of the context's height: the call fetches the
+strip of global rows [r0 - R, r1 + R), R = k // 2, a row outside the map
+reflected as ``_blur_matrix`` folds it (``spatial.REFLECT``), blurs the
+strip with the same kernel (or ``blur_plain``) and keeps its middle rows;
+the reflection at the strip's own edges reaches only the rows it drops.
+That costs 2R rows a shard, and one launch a call as before.
+
 The kernel takes every odd kernel size, as the JAX function does: its
 shared-memory strip is sized from k at launch, and a k past 512 taps runs
 in chunks of them. Nothing falls back: a CUDA tensor that meets a failed
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from ..nn.module.gaussian_blur import gaussian_kernel_1d
+from ..parallel import spatial
 
 _MAX_GRID_Z = 65535
 
@@ -190,6 +199,13 @@ def gaussian_blur_fused(x, kernel_size):
     through ``blur_plain``."""
     if x.dim() != 4 or x.shape[-1] != 1:
         raise ValueError('fused blur is specialized for single-channel maps')
+    rows = spatial.active()
+    if rows is not None:
+        return _blur_rows(x, int(kernel_size), rows)
+    return _blur_local(x, kernel_size)
+
+
+def _blur_local(x, kernel_size):
     xf = x[..., 0].float().contiguous()
     if xf.is_cuda:
         out = blur_kernel(xf, kernel_size)
@@ -199,3 +215,27 @@ def gaussian_blur_fused(x, kernel_size):
         raise ValueError('gaussian_blur_fused: unsupported device {0}'
                          .format(xf.device))
     return out[..., None].to(x.dtype)
+
+
+def strip_rows(h, n, kernel_size):
+    """For each of ``n`` spatial ranks, the global rows [r0 - R, r1 + R)
+    of the strip it blurs, R = k // 2."""
+    half = int(kernel_size) // 2
+    rows = []
+    for q in range(n):
+        r0, r1 = spatial.row_range(h, n, q)
+        rows.append((r0 - half, r1 + half) if r1 > r0 else (r0, r0))
+    return rows
+
+
+def _blur_rows(x, kernel_size, rows):
+    """``gaussian_blur_fused`` of this rank's rows of [N,H,W,1] maps of the
+    context's height, through the strip."""
+    mesh, h = rows.mesh, rows.height
+    strip = spatial.fetch_rows(x, h, strip_rows(h, mesh.n_spatial,
+                                                kernel_size),
+                               mesh, spatial.REFLECT, dim=1)
+    if x.shape[1] == 0:
+        return x
+    half = kernel_size // 2
+    return _blur_local(strip, kernel_size)[:, half:half + x.shape[1]]

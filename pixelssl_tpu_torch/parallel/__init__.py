@@ -1,11 +1,15 @@
-"""Data parallelism over processes, one card a process (counterpart of
-``pixelssl_tpu/parallel``): ``mesh`` (the collectives of a step) and
-``multihost`` (the process group and each rank's slice of the input).
-``parallel/spatial.py`` (``--spatial-train``, ``--spatial-val``) is not
-ported yet (ROADMAP A4c)."""
+"""Runs over several processes, one card a process (counterpart of
+``pixelssl_tpu/parallel``): ``mesh`` (the ranks, their data x spatial grid
+and the collectives of a step), ``multihost`` (the process group and each
+rank's slice of the input) and ``spatial`` (``--spatial-train``,
+``--spatial-val``: rows of each image over ranks, with hand-written halo
+exchanges; SupOnly, MT and GCT on DeepLab-v2, ROADMAP A4c-1)."""
 
 from .mesh import (Mesh, make_mesh, all_sum, psum_if_parallel,
                    pmean_if_parallel, fold_rng, all_reduce_grads,
                    broadcast_module, barrier, reorder_two_stream,
                    reorder_two_stream_steps)
+from .spatial import (make_mesh_2d, is_spatial_mesh, data_axis_size,
+                      pad_height_to, row_range, fetch_rows)
 from . import multihost
+from . import spatial

@@ -20,7 +20,10 @@ and the same collectives go over ``torch.distributed``:
 * BN statistics: ``models.layers.SyncBatchNorm`` sums ``(sum, ssum,
   count)`` over the ranks through ``all_sum``, whose backward sums the
   gradient too;
-* per-step draws: ``fold_rng`` folds the rank into the step's seed.
+* per-step draws: ``fold_rng`` folds the rank into the step's seed;
+* ``--spatial-train`` (``parallel/spatial.py``): the ranks form a (data x
+  spatial) grid; gradients and BN statistics are summed over every rank,
+  sample counts over the data axis.
 
 The JAX entries with nothing to port: ``parallel_step``,
 ``parallel_multi_step`` and ``parallel_eval_step`` wrap a step in
@@ -41,20 +44,44 @@ import torch.distributed as dist
 
 
 class Mesh(object):
-    """This process's place in the data-parallel run: ``rank`` of
-    ``world_size`` on ``device``, over ``group`` (None outside a
-    ``--distributed`` run). A ``--distributed`` run of one process still
-    has its group, and its collectives run."""
+    """This process's place in the run: ``rank`` of ``world_size`` on
+    ``device``, over ``group`` (None outside a ``--distributed`` run). A
+    ``--distributed`` run of one process still has its group, and its
+    collectives run.
 
-    def __init__(self, rank=0, world_size=1, device=None, group=None):
+    The ranks form a (data x spatial) grid, ``rank = data_rank * n_spatial
+    + spatial_rank`` (the JAX ``make_mesh_2d``'s device order): the ranks
+    of one data coordinate split the rows of the same samples
+    (``spatial_group``), those of one spatial coordinate hold the same rows
+    of other samples (``data_group``). A data-parallel mesh is the grid
+    with ``n_spatial`` 1, whose groups are the world's and None;
+    ``parallel.spatial.make_mesh_2d`` makes the others (``spatial``
+    True)."""
+
+    def __init__(self, rank=0, world_size=1, device=None, group=None,
+                 n_spatial=1, data_group=None, spatial_group=None,
+                 spatial=False):
         self.rank = int(rank)
         self.world_size = int(world_size)
         self.device = torch.device(device or 'cpu')
         self.group = group
+        self.spatial = bool(spatial)
+        self.n_spatial = int(n_spatial)
+        self.data_size = self.world_size // self.n_spatial
+        self.data_rank, self.spatial_rank = divmod(self.rank, self.n_spatial)
+        self.data_group = data_group if spatial else group
+        self.spatial_group = spatial_group
 
     @property
     def distributed(self):
         return self.group is not None
+
+    @property
+    def spatial_ranks(self):
+        """The global ranks of this rank's spatial group, by spatial
+        coordinate."""
+        first = self.data_rank * self.n_spatial
+        return list(range(first, first + self.n_spatial))
 
     def __deepcopy__(self, memo):
         # modules that hold the mesh (SyncBatchNorm) may be copied; the
@@ -62,9 +89,11 @@ class Mesh(object):
         return self
 
     def __repr__(self):
-        return 'Mesh(rank={0}, world_size={1}, device={2}, {3})'.format(
+        return 'Mesh(rank={0}, world_size={1}, device={2}, {3}{4})'.format(
             self.rank, self.world_size, self.device,
-            'distributed' if self.distributed else 'one process')
+            'distributed' if self.distributed else 'one process',
+            ', {0} x {1} (data x spatial)'.format(
+                self.data_size, self.n_spatial) if self.spatial else '')
 
 
 def make_mesh(device='cpu'):
@@ -93,22 +122,28 @@ class _AllSum(torch.autograd.Function):
         return None, _AllSum.apply(ctx.group, grad)
 
 
-def all_sum(tensor, mesh):
-    """``tensor`` summed over the ranks of ``mesh``, differentiably; the
-    tensor itself outside a distributed run."""
-    if mesh is None or not mesh.distributed:
-        return tensor
-    return _AllSum.apply(mesh.group, tensor)
+def _group(mesh, group):
+    return mesh.group if group is None else group
 
 
-def psum_if_parallel(tensor, mesh):
-    """``tensor`` summed over the ranks, a new tensor without gradient
-    (JAX ``psum_if_parallel``); the tensor itself outside a distributed
+def all_sum(tensor, mesh, group=None):
+    """``tensor`` summed over the ranks of ``group`` (by default every rank
+    of ``mesh``; ``mesh.spatial_group`` or ``mesh.data_group`` for one axis
+    of the grid), differentiably; the tensor itself outside a distributed
     run."""
     if mesh is None or not mesh.distributed:
         return tensor
+    return _AllSum.apply(_group(mesh, group), tensor)
+
+
+def psum_if_parallel(tensor, mesh, group=None):
+    """``tensor`` summed over the ranks of ``group`` (every rank by
+    default), a new tensor without gradient (JAX ``psum_if_parallel``);
+    the tensor itself outside a distributed run."""
+    if mesh is None or not mesh.distributed:
+        return tensor
     out = tensor.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh, group))
     return out
 
 
@@ -120,20 +155,27 @@ def pmean_if_parallel(tensor, mesh):
 
 
 def fold_rng(entropy, mesh):
-    """The entropy of a step's seed with the rank folded in where more than
-    one rank draws (JAX ``fold_rng`` folds the axis index into the key):
-    each rank draws its own samples' randomness."""
-    if mesh is None or mesh.world_size == 1:
+    """The entropy of a step's seed with the data coordinate folded in
+    where more than one data rank draws (JAX ``fold_rng`` folds the axis
+    index into the key): each data rank draws its own samples'
+    randomness. Under ``--spatial-train`` nothing is folded: the step's
+    draws are one draw at the global batch's shape, as one process makes
+    it, of which each rank keeps its samples and rows (JAX
+    ``axis_name=None``)."""
+    if mesh is None or mesh.spatial or mesh.world_size == 1:
         return list(entropy)
-    return list(entropy) + [mesh.rank]
+    return list(entropy) + [mesh.data_rank]
 
 
 def all_reduce_grads(params, mesh):
-    """The gradients of ``params`` summed over the ranks in place: one flat
-    all-reduce for each dtype of them (one, float32, in every algorithm),
-    the JAX steps' ``pmean(grads)`` of gradients of each rank's share of
-    the global mean. Parameters without a gradient take no part; which have
-    one is the same on every rank."""
+    """The gradients of ``params`` summed over every rank in place: one
+    flat all-reduce for each dtype of them (one, float32, in every
+    algorithm), the JAX steps' ``pmean(grads)`` of gradients of each
+    rank's share of the global mean. Under ``--spatial-train`` each rank
+    of a spatial group holds the part of its samples' gradient that its
+    rows give, and the same sum over the world adds them. Parameters
+    without a gradient take no part; which have one is the same on every
+    rank."""
     if mesh is None or not mesh.distributed:
         return
     by_dtype = {}

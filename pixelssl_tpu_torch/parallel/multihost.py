@@ -76,9 +76,10 @@ def is_multihost():
 
 
 def local_device_positions(mesh):
-    """Mesh positions of this process's devices: its rank, one card a
+    """Mesh positions of this process's devices along the data axis: its
+    data coordinate (its rank on a data-parallel mesh), one card a
     process."""
-    return [mesh.rank]
+    return [mesh.data_rank]
 
 
 def process_batch_indices(idx_batch, lbs, ubs, positions, n_dev):

@@ -43,7 +43,7 @@ def get_builder(name):
 
 
 def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
-                    task_type=None):
+                    task_type=None, mesh=None):
     """Resolve ``args.models``/``criterions``/``lrers``/``optimizers`` in
     the task's ``model`` and ``criterion`` modules and the port's
     registries, then build ``args.ssl_algorithm`` on ``device`` and
@@ -51,11 +51,20 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
     the harness both build through here. With ``task_type``, an algorithm
     that does not support it is refused. The batch sizes of ``args`` are
     global: under ``torch.distributed`` each of the W ranks steps on 1/W of
-    them (``parallel.make_mesh``), as the JAX build divides by its mesh."""
+    them (``parallel.make_mesh``), as the JAX build divides by its mesh;
+    with ``--spatial-train N`` each data coordinate of the (W/N x N) grid
+    (``parallel.make_mesh_2d``, unless ``mesh`` is given) on 1/(W/N) of
+    them, and each rank on its rows."""
     from .. import parallel
     from ..nn import lrer as nnlrer
     from ..nn import optimizer as nnoptimizer
     from ..utils import logger
+
+    n_spatial = int(getattr(args, 'spatial_train', 0) or 0)
+    why = (parallel.spatial.unsupported(args, getattr(args, 'task', '') or
+                                        'sseg') if n_spatial > 1 else None)
+    if why is not None:
+        logger.log_err(why)
 
     model_dict, criterion_dict, optimizer_dict, lrer_dict = {}, {}, {}, {}
     for cname in args.models.keys():
@@ -72,16 +81,20 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
         optimizer_dict[cname] = nnoptimizer.get(args.optimizers[cname])(args)
     task_func = func.task_func()(args)
 
-    mesh = parallel.make_mesh(device)
+    if mesh is None:
+        mesh = parallel.make_mesh(device)
+        if n_spatial > 1:
+            mesh = parallel.make_mesh_2d(n_spatial, mesh)
     lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
-    if lbs % mesh.world_size or ubs % mesh.world_size:
+    n_data = parallel.data_axis_size(mesh)
+    if lbs % n_data or ubs % n_data:
         logger.log_err('the labeled ({0}) and unlabeled ({1}) batch sizes '
                        'must divide by the {2} ranks'.format(
-                           lbs, ubs, mesh.world_size))
+                           lbs, ubs, n_data))
     algo = get_builder(args.ssl_algorithm)(
         args, model_dict, optimizer_dict, lrer_dict, criterion_dict,
-        task_func, device=device, lbs=lbs // mesh.world_size,
-        ubs=ubs // mesh.world_size,
+        task_func, device=device, lbs=lbs // n_data,
+        ubs=ubs // n_data,
         iters_per_epoch=max(1, int(iters_per_epoch or 1)), mesh=mesh)
     if task_type is not None and task_type not in algo.SUPPORTED_TASK_TYPES:
         logger.log_err('SSL algorithm {0} supports {1}, but the task is '

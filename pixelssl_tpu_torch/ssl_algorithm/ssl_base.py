@@ -33,6 +33,19 @@ of the samples and sums the confusion matrices; rank 0 alone writes
 checkpoints, ``metrics.jsonl`` and the ``--visualize`` PNGs (``train``,
 ``_train_multi``, ``validate``: an eval forward of the batch's first
 sample at ``--visual-freq``, outside any CUDA graph).
+
+Under ``--spatial-train`` (``parallel.spatial``, a data x spatial grid)
+each rank holds the samples of its data coordinate and its rows of them
+(``batch['height']``: the global height), and the step runs inside
+``spatial.sharded``: every per-sample loss is the rank's share, whose sum
+over the spatial group is the sample's loss; ``_global_mean`` counts the
+samples over the data axis only; gradients and BN statistics sum over every
+rank; each per-step draw is one draw at the global batch's shape from the
+seed one process uses, of which the rank keeps its samples and rows
+(``_global_draw``). One step over any grid is then the step one process
+takes on the global batch. ``validate`` scores whole samples, a data rank
+each, or (``--spatial-val``, a loader with ``spatial_mesh``) the rows of
+one sample on every rank.
 """
 
 import contextlib
@@ -45,6 +58,7 @@ from torch.func import functional_call
 
 from .. import parallel
 from ..models.layers import SyncBatchNorm
+from ..parallel import spatial
 from ..nn import imageio
 from ..nn import loader as nnloader
 from ..nn.func import count_params, sigmoid_rampup
@@ -61,8 +75,9 @@ class TaskContext(object):
     optimizer_dict, lrer_dict, criterion_dict, task_func), plus the device,
     the labeled/unlabeled split of this rank's batch, the iterations per
     epoch and the ``parallel.Mesh`` (by default this process's).
-    ``n_dev`` is the number of ranks, which the reference's lr x GPU-count
-    scalings multiply by (ssl_adv.py:72, ssl_gct.py:107).
+    ``n_dev`` is the number of ranks along the data axis, which the
+    reference's lr x GPU-count scalings multiply by (ssl_adv.py:72,
+    ssl_gct.py:107): spatial ranks split each image, not the batch.
     """
 
     def __init__(self, args, models, optimizers, lrers, criterions, task_func,
@@ -76,7 +91,7 @@ class TaskContext(object):
         self.task_func = task_func
         self.device = device
         self.mesh = mesh if mesh is not None else parallel.make_mesh(device)
-        self.n_dev = self.mesh.world_size
+        self.n_dev = parallel.data_axis_size(self.mesh)
         self.lbs = lbs
         self.ubs = ubs
         self.iters_per_epoch = iters_per_epoch
@@ -186,6 +201,7 @@ class CapturedStep(object):
         torch.cuda.synchronize(device)
         self.static = {key: tuple(x.clone() for x in batch[key])
                        for key in ('inp', 'gt')}
+        self.height = batch.get('height')
         self.generators = {salt: torch.Generator(device=device)
                            for salt in self.SALTS}
         self.graph = torch.cuda.CUDAGraph()
@@ -200,7 +216,9 @@ class CapturedStep(object):
         algo.step_scalars.begin()
         algo._capture_generators = self.generators
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph), \
+                    algo._step_context(dict(self.static,
+                                            height=self.height)):
                 self.outputs = algo._step_fn(
                     algo.ctx.task_func.device_prep(self.static))
         finally:
@@ -298,9 +316,20 @@ class SSLBase(object):
     def train_step(self, batch):
         """One train step on ``{'inp': (...), 'gt': (...)}``; returns the
         metrics as 0-d float32 tensors."""
-        metrics = self._step_fn(self.ctx.task_func.device_prep(batch))
+        with self._step_context(batch):
+            metrics = self._step_fn(self.ctx.task_func.device_prep(batch))
         self.state.step += 1
         return metrics
+
+    def _step_context(self, batch):
+        """``spatial.sharded`` over the grid at the batch's global height
+        under ``--spatial-train``; nothing otherwise."""
+        if not self.mesh.spatial:
+            return contextlib.nullcontext()
+        if batch.get('height') is None:
+            raise ValueError('a --spatial-train batch carries its global '
+                             'height (batch["height"])')
+        return spatial.sharded(self.mesh, batch['height'])
 
     def train_steps(self, batches, history=None):
         """``len(batches)`` train steps in one dispatch (``--steps-per-
@@ -436,15 +465,36 @@ class SSLBase(object):
         """Mean of a per-sample vector over every rank's samples, ``Σ local
         / Σ_ranks count`` (JAX ssl_base.py:180-185). Its value is the same
         on every rank; its gradient is this rank's share, ``1 / Σ count``
-        a sample, which ``_apply_updates`` sums over the ranks."""
+        a sample, which ``_apply_updates`` sums over the ranks. Under
+        ``--spatial-train`` ``vec`` holds shares, summed over every rank,
+        and the samples count on the ranks of spatial coordinate 0 only
+        (the data axis)."""
         if not self.mesh.distributed:
             return vec.mean()
         local = vec.sum()
-        count = torch.full((), float(vec.shape[0]), dtype=local.dtype,
-                           device=local.device)
+        count = torch.full((), float(vec.shape[0]) if
+                           self.mesh.spatial_rank == 0 else 0.0,
+                           dtype=local.dtype, device=local.device)
         total = parallel.psum_if_parallel(
             torch.stack([local.detach(), count]), self.mesh)
         return (local + (total[0] - local.detach())) / total[1]
+
+    def _global_draw(self, x, draw):
+        """``draw(shape)`` at the global batch's shape of ``x`` (this
+        rank's samples and rows of a [N,C,H,W] batch) under
+        ``--spatial-train``, of which this rank's samples and rows are kept
+        (slices: a captured step copies nothing from the host); ``draw(x's
+        shape)`` otherwise."""
+        if not self.mesh.spatial:
+            return draw(x.shape)
+        rows = spatial.active()
+        n = self.mesh.data_size
+        lbs, ubs = self.ctx.lbs * n, (self.ctx.ubs or 0) * n
+        full = draw((lbs + ubs, x.shape[1], rows.height, x.shape[3]))
+        r0, r1 = spatial.local_rows(rows.height, self.mesh)
+        blocks = [full[a:b] for a, b in spatial.local_samples(
+            lbs, ubs, self.mesh) if b > a]
+        return torch.cat(blocks)[:, :, r0:r1]
 
     def _pmean(self, value):
         """``value`` (no gradient) averaged over the ranks."""
@@ -632,7 +682,12 @@ class SSLBase(object):
         ``sharded`` is true gives each rank its share of the samples: a
         batch's loss is ``Σ(loss·valid) / max(Σvalid, 1)`` over every
         rank's samples, and the confusion matrices are summed over the
-        ranks (JAX ssl_base.py:396-445). ``--visualize``: rank 0 writes the
+        ranks of its ``group`` (every rank by default; the data axis under
+        ``--spatial-train``) (JAX ssl_base.py:396-445). A loader with a
+        ``spatial_mesh`` (``--spatial-val``) gives every rank its rows of
+        the same sample: the eval forward runs row-sharded, the loss
+        shares and the confusion matrices are summed over the ranks, and
+        the sample counts once. ``--visualize``: rank 0 writes the
         PNGs of its batch's first sample every ``--visual-freq``
         batches."""
         self.meters = AvgMeterSet()  # no stale training keys
@@ -640,8 +695,14 @@ class SSLBase(object):
         args = self.args
         reduce = None
         if getattr(data_loader, 'sharded', False):
+            group = getattr(data_loader, 'group', None)
+
             def reduce(tensor):
-                return parallel.psum_if_parallel(tensor, self.mesh)
+                return parallel.psum_if_parallel(tensor, self.mesh, group)
+        # --spatial-val: each rank holds rows of the batch's sample; the
+        # losses are shares, and the sample counts on spatial rank 0
+        rows_mesh = getattr(data_loader, 'spatial_mesh', None)
+        counts = rows_mesh is None or rows_mesh.spatial_rank == 0
         visual = (bool(getattr(args, 'visualize', False)) and
                   bool(getattr(args, 'visual_val_path', '')) and
                   self.mesh.rank == 0)
@@ -653,11 +714,16 @@ class SSLBase(object):
                 if visual and idx % max(1, args.visual_freq) == 0:
                     out = os.path.join(args.visual_val_path,
                                        '{0}_{1}'.format(epoch, idx))
-                for model_id, (activated_pred, loss_vec) in \
-                        self._eval_fn(batch).items():
+                with (spatial.sharded(rows_mesh, batch['height'])
+                      if rows_mesh is not None else
+                      contextlib.nullcontext()):
+                    scored = self._eval_fn(batch)
+                for model_id, (activated_pred, loss_vec) in scored.items():
                     if valid is not None:
                         v = valid.to(loss_vec)
-                        sums = torch.stack([(loss_vec * v).sum(), v.sum()])
+                        sums = torch.stack([(loss_vec * v).sum(),
+                                            v.sum() if counts else
+                                            v.sum() * 0])
                         if reduce is not None:
                             sums = reduce(sums)
                         loss = sums[0] / sums[1].clamp(min=1.0)

@@ -26,6 +26,13 @@ The pipeline functions take and return NHWC maps, as the JAX ones do; the
 modules are NCHW and the step passes permuted views between them. Every
 blur goes through ``ops.blur.gaussian_blur_fused``: six launches a step,
 and six more a step that ``--visualize`` dumps (``_debug_visualize``).
+
+Under ``--spatial-train`` (``parallel.spatial``) a map holds this rank's
+rows: the blur's k comes from the global height, each blur runs on the
+rank's strip of rows (still six launches a step), the min-max
+normalisations take each sample's extrema over every rank of the spatial
+group, the 3x3 dilation fetches a row above and below (reflected at the
+map's edges only), and the fc, dc and FD losses are shares.
 """
 
 import torch
@@ -36,6 +43,7 @@ from ..models.flaw_detector import FlawDetector, flaw_detector_criterion
 from ..nn.func import split_tensor_tuple
 from ..nn.optimizer import Adam
 from ..ops.blur import gaussian_blur_fused as _blur
+from ..parallel import spatial
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext, save_gray_map
@@ -101,8 +109,8 @@ def _odd(k):
 
 
 def _minmax_normalize(x):
-    xmax = x.amax(dim=(1, 2, 3), keepdim=True)
-    xmin = x.amin(dim=(1, 2, 3), keepdim=True)
+    xmax = spatial.sample_max(x)
+    xmin = spatial.sample_min(x)
     return (x - xmin) / (xmax - xmin + 1e-9), xmin, xmax
 
 
@@ -112,8 +120,8 @@ def flawmap_handler(flawmap, im_size, clip_threshold=0.1):
     fm = flawmap.detach().float()
     fm = fm * (fm >= 0).float()
     fm = _blur(fm, _odd(int(im_size / 16)))
-    fmax = fm.amax(dim=(1, 2, 3), keepdim=True)
-    fmin = fm.amin(dim=(1, 2, 3), keepdim=True)
+    fmax = spatial.sample_max(fm)
+    fmin = spatial.sample_min(fm)
     fm = fm * (fmax > clip_threshold).float()
     return (fm - fmin) / (fmax - fmin + 1e-9)
 
@@ -137,8 +145,19 @@ def dcgt_generator(l_pred, r_pred, l_flawmap, r_flawmap, dc_threshold):
 
 
 def _dilate3x3(x):
-    """3x3 max filter with reflect padding (the edge not repeated), NHWC."""
-    y = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode='reflect')
+    """3x3 max filter with reflect padding (the edge not repeated), NHWC;
+    inside a ``spatial.sharded`` block on this rank's rows, the row above
+    and below fetched (reflected at the map's edges)."""
+    rows = spatial.active()
+    if rows is None:
+        y = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode='reflect')
+        return _nhwc(F.max_pool2d(y, 3, stride=1))
+    mesh, h = rows.mesh, rows.height
+    requests = spatial.window_rows(h, mesh.n_spatial, 1, 1, 3)
+    y = spatial.fetch_rows(x, h, requests, mesh, spatial.REFLECT, dim=1)
+    if x.shape[1] == 0:
+        return x
+    y = F.pad(y.permute(0, 3, 1, 2), (1, 1, 0, 0), mode='reflect')
     return _nhwc(F.max_pool2d(y, 3, stride=1))
 
 
@@ -220,7 +239,7 @@ class SSLGCT(SSLBase):
         ctx = self.ctx
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
         lbs = ctx.lbs
-        im_size = inp[0].shape[2]
+        im_size = spatial.global_height(inp[0])
         metrics = {}
 
         # phase 0: no-grad pre-forwards; BN statistics update as in train()
@@ -262,10 +281,10 @@ class SSLGCT(SSLBase):
                 if args.ssl_mode == MODE_GCT:
                     fc = fc_mask * fc
                 fc_loss = args.fc_ssl_scale * self._global_mean(
-                    fc.mean(dim=(1, 2, 3)))
+                    spatial.sample_mean(fc, h_dim=1))
             if args.ssl_mode in (MODE_GCT, MODE_DC):
-                dc = torch.square(_nhwc(act).float() - dc_gt.float()).mean(
-                    dim=(1, 2, 3))
+                dc = spatial.sample_mean(torch.square(
+                    _nhwc(act).float() - dc_gt.float()), h_dim=1)
                 dc_loss = self._rampup(args.dc_rampup_epochs,
                                        args.dc_ssl_scale) * \
                     self._global_mean(dc)

@@ -21,7 +21,10 @@ reference pixelssl/ssl_algorithm/ssl_mt.py).
   (ssl_mt.py:226-290).
 
 With ``--bf16-ema`` the teacher's parameters are stored in bf16 and its
-forward runs on float32 copies of them.
+forward runs on float32 copies of them. Under ``--spatial-train`` the
+noise is one draw at the global batch's shape, normalised by each
+sample's extrema over its rows on every rank, and the consistency is each
+rank's share of the per-sample MSE.
 """
 
 import copy
@@ -31,6 +34,7 @@ import torch
 from ..nn.func import split_tensor_tuple
 from ..nn.module.gaussian_noise import gaussian_noise
 from ..utils import cmd, logger
+from ..parallel import spatial
 from ..utils.constant import REGRESSION, CLASSIFICATION
 from .ssl_base import (SSLBase, TaskContext, forward_with_float32_params,
                        maybe_bf16)
@@ -106,7 +110,8 @@ class SSLMT(SSLBase):
         if std is None or std <= 0:
             return inp
         generator = self._step_rng(self.state.step, salt)
-        return (gaussian_noise(inp[0], std, generator),) + tuple(inp[1:])
+        return (gaussian_noise(inp[0], std, generator, self._global_draw),) \
+            + tuple(inp[1:])
 
     def _step_fn(self, batch):
         args = self.args
@@ -137,8 +142,8 @@ class SSLMT(SSLBase):
             cons_loss = torch.zeros((), dtype=torch.float32,
                                     device=self.device)
         else:
-            cons_mse = self._global_mean(torch.square(diff.float()).mean(
-                dim=tuple(range(1, diff.dim()))))
+            cons_mse = self._global_mean(spatial.sample_mean(
+                torch.square(diff.float())))
             cons_loss = self._rampup(args.cons_rampup_epochs,
                                      args.cons_scale) * cons_mse
 

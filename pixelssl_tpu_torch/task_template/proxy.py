@@ -20,9 +20,17 @@ JAX package's, and validates its share of the samples (``_ValLoader``).
 ``--visualize`` makes ``visualization/{debug,train,val}`` under the
 experiment's folder and points ``--visual-*-path`` there.
 
-Flags of the JAX package that the port lacks parse here, and any value but
-their default is refused with the ROADMAP item that ports them:
-``--spatial-val`` and ``--spatial-train`` (A4c). ``--steps-per-dispatch``
+``--spatial-train N`` (with ``--distributed``, N dividing the ranks)
+arranges the ranks as a (W/N x N) grid (``parallel.make_mesh_2d``): the
+batch and lr scale by the data axis W/N, each rank loads the samples of
+its data coordinate and keeps its rows of them on the host before the
+copy, and validation scores whole samples in batches of the data axis.
+``--spatial-val`` validates one sample at a time, padded to the bucket and
+its H to a multiple of the ranks, its rows over every rank
+(``_ValLoader``). Both take SupOnly, MT and GCT on DeepLab-v2 for now;
+another algorithm, model or task, or ``--visualize``, stops with the
+ROADMAP item that brings it (``parallel.spatial.unsupported``: A4c-2,
+A4c-3), as do the two flags together. ``--steps-per-dispatch``
 shapes the algorithm's loop (``SSLBase.train``: chunks of a dispatch),
 ``--eager-ingest`` the train loader (``nn.loader``: the copy on a side
 stream); ``--profile-dir`` and ``--profile-steps`` the loop's profiler
@@ -44,11 +52,6 @@ from ..nn import lrer as nnlrer
 from ..utils import cmd, logger
 from ..utils import device as device_util
 
-# (flag, its default, the ROADMAP item that ports it): any value but the
-# default is refused
-_UNPORTED_FLAGS = (
-    ('spatial_val', False, 'A4c'), ('spatial_train', 0, 'A4c'))
-
 _CHECKPOINT_RE = re.compile(r'^checkpoint_(\d+)\.pth$')
 
 
@@ -69,8 +72,8 @@ def add_parser_arguments(parser):
     parser.add_argument('--seed', type=int, default=0, metavar='', help='exp - global random seed')
     parser.add_argument('--steps-per-dispatch', type=int, default=1, metavar='', help='exp - train steps a dispatch: on the card one CUDA graph of the step, replayed once a step')
     parser.add_argument('--eager-ingest', type=cmd.str2bool, default=False, metavar='', help='exp - copy each train batch to the card in a loader thread, on a side stream')
-    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - split validation images over devices (ROADMAP A4c)')
-    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split train images over devices (ROADMAP A4c)')
+    parser.add_argument('--spatial-val', type=cmd.str2bool, default=False, metavar='', help='exp - validate each image with its rows split over every rank')
+    parser.add_argument('--spatial-train', type=int, default=0, metavar='', help='exp - split each train image\'s rows over N ranks of a (W/N x N) grid (with --distributed)')
     parser.add_argument('--profile-dir', type=str, default='', metavar='', help='exp - trace train steps [1, 1 + profile-steps] of epoch 0 into this directory (torch.profiler, Chrome trace)')
     parser.add_argument('--profile-steps', type=int, default=10, metavar='', help='exp - steps (or dispatches) traced by --profile-dir')
     parser.add_argument('--exact-val', type=cmd.str2bool, default=False, metavar='',
@@ -138,10 +141,17 @@ class TaskProxy(object):
         self.data = data
         self.model = model
         self.criterion = criterion
+        self._check_spatial(args)
         # the process group forms before any CUDA work of the run
         self.device = parallel.multihost.initialize(
             args, device_util.resolve(device))
         self.mesh = parallel.make_mesh(self.device)
+        if args.spatial_train > 1:
+            self.mesh = parallel.make_mesh_2d(args.spatial_train, self.mesh)
+        # --spatial-val: every rank holds rows of the same sample
+        self.val_mesh = (parallel.make_mesh_2d(self.mesh.world_size,
+                                               self.mesh)
+                         if args.spatial_val else None)
 
         self.train_loader = None
         self.val_loader = None
@@ -150,6 +160,25 @@ class TaskProxy(object):
         self._init()
 
     # ------------------------------------------------------------------
+
+    def _check_spatial(self, args):
+        """The refusals of ``--spatial-train`` and ``--spatial-val`` (JAX
+        proxy.py:160-174, and what the port does not run yet), before the
+        process group forms."""
+        if args.spatial_train > 1 or args.spatial_val:
+            why = parallel.spatial.unsupported(args, self.NAME)
+            if why is not None:
+                logger.log_err(why)
+        if args.spatial_train > 1:
+            if args.spatial_val:
+                logger.log_err('--spatial-train and --spatial-val are '
+                               'mutually exclusive (use --exact-val or the '
+                               'bucketed default for validation)')
+            if not args.distributed:
+                logger.log_err('--spatial-train {0} splits each image over '
+                               'ranks: launch with torchrun and '
+                               '--distributed true'.format(
+                                   args.spatial_train))
 
     def _init(self):
         self._preprocess_arguments()
@@ -193,12 +222,6 @@ class TaskProxy(object):
         logger.log_mode(args.debug)
         args.task = self.NAME
 
-        for name, default, item in _UNPORTED_FLAGS:
-            if getattr(args, name) != default:
-                logger.log_err('--{0} is not ported to pixelssl_tpu_torch yet '
-                               '(ROADMAP {1})'.format(name.replace('_', '-'),
-                                                      item))
-
         # component dicts and the kind of their lr schedules (reference
         # proxy.py:198-237, JAX proxy.py:241-257)
         dicts = [args.models, args.optimizers, args.lrers, args.criterions]
@@ -218,9 +241,9 @@ class TaskProxy(object):
             args.is_epoch_lrer = (list(args.lrers.values())[0] in
                                   nnlrer.EPOCH_LRERS)
 
-        # batch and lr per rank, scaled by the ranks as the JAX proxy scales
-        # by its mesh; the workers are a rank's own
-        n_dev = self.mesh.world_size
+        # batch and lr per rank, scaled by the ranks of the data axis as the
+        # JAX proxy scales by its mesh; the workers are a rank's own
+        n_dev = parallel.data_axis_size(self.mesh)
         args.n_devices = n_dev
         if n_dev > 1:
             if getattr(args, 'lr', None) not in (None, -1):
@@ -328,15 +351,17 @@ class TaskProxy(object):
                     lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
                 if self.mesh.world_size > 1:
                     # every rank walks the same seeded global sequence and
-                    # loads only its own slice (parallel/multihost.py)
+                    # loads only its own slice (parallel/multihost.py): the
+                    # samples of its data coordinate
                     sampler = parallel.multihost.ProcessShardedSampler(
                         sampler, lbs, ubs,
                         parallel.multihost.local_device_positions(self.mesh),
-                        self.mesh.world_size)
+                        parallel.data_axis_size(self.mesh))
                 self.train_loader = nnloader.DataLoader(
                     trainset, sampler, self.device,
                     num_workers=args.num_workers,
-                    eager_ingest=args.eager_ingest)
+                    eager_ingest=args.eager_ingest,
+                    rows_of=self.mesh if self.mesh.spatial else None)
 
         valset_num = sum(len(v) for v in args.valset.values())
         valset = None
@@ -351,7 +376,8 @@ class TaskProxy(object):
         if valset is not None:
             self.val_loader = _ValLoader(
                 valset, self.device, getattr(args, 'ignore_index', 255),
-                exact=args.exact_val, mesh=self.mesh)
+                exact=args.exact_val, mesh=self.mesh,
+                spatial_mesh=self.val_mesh)
 
         if self.train_loader is None and not args.validation:
             logger.log_err('Train data loader is required unless validation mode')
@@ -374,7 +400,7 @@ class TaskProxy(object):
         # the lr schedule and the ramp-ups count this run's iterations
         self.ssl_algorithm = ssl_registry.build_algorithm(
             args, self.model, self.criterion, self.func, self.device,
-            args.iters_per_epoch, task_type=self.TASK_TYPE)
+            args.iters_per_epoch, task_type=self.TASK_TYPE, mesh=self.mesh)
         logger.log_info('SSL algorithm: {0}'.format(args.ssl_algorithm))
 
 
@@ -387,24 +413,36 @@ class _ValLoader(object):
     ``exact`` gives the sample unpadded and no mask (reference
     proxy.py:402-403), the same samples on every rank.
 
-    Across W ranks (``mesh``, bucketed mode) batch ``b`` of rank ``r`` is
-    sample ``b*W + r``, the JAX loader's batches of W samples, one a
-    device; past the last sample a rank gets a copy of the last one with
-    an all-ignore label and ``valid`` 0. ``sharded`` tells ``validate`` to
-    sum its counts over the ranks."""
+    Across W ranks of the data axis (``mesh``, bucketed mode) batch ``b``
+    of data rank ``r`` is sample ``b*W + r``, the JAX loader's batches of W
+    samples, one a device; past the last sample a rank gets a copy of the
+    last one with an all-ignore label and ``valid`` 0. Under
+    ``--spatial-train`` the ranks of one data coordinate score the same
+    samples whole. ``sharded`` tells ``validate`` to sum its counts over
+    the ranks of ``group`` (the data axis).
+
+    ``spatial_mesh`` (``--spatial-val``): every rank takes every sample,
+    bucketed, its H padded further to a multiple of the ranks (0 for
+    inputs, ``ignore_index`` for labels, JAX proxy.py:604-624), and keeps
+    its rows of it; ``batch['height']`` is the padded height."""
 
     BUCKET = 32
 
     def __init__(self, dataset, device, ignore_index=255, exact=False,
-                 mesh=None):
+                 mesh=None, spatial_mesh=None):
         self.dataset = dataset
         self.device = device
         self.ignore_index = ignore_index
         self.exact = exact
-        self.rank = mesh.rank if mesh is not None else 0
-        self.world = mesh.world_size if mesh is not None else 1
+        self.spatial_mesh = None if exact else spatial_mesh
+        self.rank = mesh.data_rank if mesh is not None else 0
+        self.world = parallel.data_axis_size(mesh) if mesh is not None else 1
+        if self.spatial_mesh is not None:
+            self.rank, self.world = 0, 1
         self.sharded = (not exact and mesh is not None and
                         mesh.distributed)
+        self.group = mesh.data_group if self.sharded and \
+            self.spatial_mesh is None else None
 
     def _pad(self, arr, fill):
         arr = np.asarray(arr)
@@ -415,6 +453,15 @@ class _ValLoader(object):
             return arr
         return np.pad(arr, pads, mode='constant', constant_values=fill)
 
+    def _rows(self, arr, fill):
+        """A sample's rows on this rank (``--spatial-val``), its H padded to
+        a multiple of the ranks first."""
+        mesh = self.spatial_mesh
+        arr, _ = parallel.pad_height_to(mesh, np.asarray(arr)[None],
+                                        fill=fill)
+        lo, hi = parallel.spatial.local_rows(arr.shape[1], mesh)
+        return arr[0, lo:hi], arr.shape[1]
+
     def __len__(self):
         n = len(self.dataset)
         return n if self.exact else -(-n // self.world)
@@ -424,7 +471,7 @@ class _ValLoader(object):
         for b in range(len(self)):
             i = b if self.exact else b * self.world + self.rank
             inp, gt = self.dataset[min(i, n - 1)]
-            valid = None
+            valid = height = None
             if not self.exact:
                 if i >= n:
                     gt = tuple(np.full_like(np.asarray(g), self.ignore_index)
@@ -432,6 +479,15 @@ class _ValLoader(object):
                 inp = tuple(self._pad(a, 0.0) for a in inp)
                 gt = tuple(self._pad(g, self.ignore_index) for g in gt)
                 valid = torch.full((1,), 1.0 if i < n else 0.0)
-            inp = tuple(torch.from_numpy(np.asarray(a)[None]) for a in inp)
-            gt = tuple(torch.from_numpy(np.asarray(g)[None]) for g in gt)
-            yield nnloader.to_device(inp, gt, self.device, valid)
+            if self.spatial_mesh is not None:
+                rows = [self._rows(a, 0) for a in inp]
+                inp, height = tuple(r for r, _ in rows), rows[0][1]
+                gt = tuple(self._rows(g, self.ignore_index)[0] for g in gt)
+            inp = tuple(torch.from_numpy(np.ascontiguousarray(a)[None])
+                        for a in inp)
+            gt = tuple(torch.from_numpy(np.ascontiguousarray(g)[None])
+                       for g in gt)
+            batch = nnloader.to_device(inp, gt, self.device, valid)
+            if height is not None:
+                batch['height'] = height
+            yield batch

@@ -7,12 +7,16 @@ pixel (< 0, >= C, or ``ignore_index``) adds 0 to the sum but still counts
 in the denominator, as the reference's ``CrossEntropyLoss(ignore_index,
 reduction='none')`` followed by ``torch.mean(loss, dim=(1,2))``. Unlabeled
 rows carry -1; they are masked before ``F.cross_entropy``, which raises on
-out-of-range targets.
+out-of-range targets. Inside a ``parallel.spatial.sharded`` block each rank
+holds rows of the sample, and its loss is its share: the sum over its
+pixels over the global H*W, whose sum over the spatial group is the
+sample's loss.
 """
 
 import torch
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from ...task_template import criterion_template
 from ...utils import logger
 
@@ -29,7 +33,7 @@ def cross_entropy_per_sample(logits, gt, ignore_index):
     safe_gt = torch.where(valid, gt, torch.zeros_like(gt)).long()
     ce = F.cross_entropy(logits, safe_gt, reduction='none')
     ce = torch.where(valid, ce, torch.zeros_like(ce))
-    return ce.mean(dim=(1, 2))
+    return spatial.sample_mean(ce, h_dim=1)
 
 
 class CommonSsegCriterion(criterion_template.TaskCriterion):

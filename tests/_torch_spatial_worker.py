@@ -1,0 +1,274 @@
+"""One rank of a spatially partitioned run of the port on the CPU (gloo),
+for ``tests/test_torch_spatial.py``:
+
+    python tests/_torch_spatial_worker.py JOB RANK OUT
+
+``JOB`` is a ``torch.save``d dict: ``kind`` ('layers', 'steps', 'script'
+or 'validate'), ``world``, ``port`` and the kind's inputs (see ``run_*``);
+the rank writes what it saw to ``OUT``. The layer cases live here
+(``layer_case``, ``run_layer``) so that the test computes the one-process
+reference with the same code. Imports the port only.
+"""
+
+import contextlib
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from pixelssl_tpu_torch import harness, parallel  # noqa: E402
+from pixelssl_tpu_torch.models import layers  # noqa: E402
+from pixelssl_tpu_torch.models.deeplab_v2 import DeepLabV2  # noqa: E402
+from pixelssl_tpu_torch.models.flaw_detector import (  # noqa: E402
+    FlawDetector, IBNorm)
+from pixelssl_tpu_torch.ops import blur  # noqa: E402
+from pixelssl_tpu_torch.parallel import spatial  # noqa: E402
+from pixelssl_tpu_torch.ssl_algorithm import ssl_gct  # noqa: E402
+
+N, C, W = 2, 3, 10
+
+# name -> (what, arguments): each case at every height of LAYER_HEIGHTS
+LAYER_KINDS = {
+    'conv3_s1': ('conv', dict(k=3, s=1, p=1, d=1)),
+    'conv3_s2': ('conv', dict(k=3, s=2, p=1, d=1)),
+    'conv3_d2': ('conv', dict(k=3, s=1, p=2, d=2)),
+    'conv3_d24': ('conv', dict(k=3, s=1, p=24, d=24)),
+    'conv1_s2': ('conv', dict(k=1, s=2, p=0, d=1)),
+    'conv7_s2': ('conv', dict(k=7, s=2, p=3, d=1)),
+    'fd_conv4_s2': ('conv', dict(k=4, s=2, p=1, d=1)),
+    'fd_conv4_s1': ('conv', dict(k=4, s=1, p=1, d=1)),
+    'max_pool': ('pool', {}),
+    'resize_up': ('resize', dict(scale=2.0)),
+    'resize_down': ('resize', dict(scale=0.3)),
+    'sync_bn': ('bn', {}),
+    'ibnorm': ('ibn', {}),
+    'blur_k5': ('blur', dict(k=5)),
+    'blur_k21': ('blur', dict(k=21)),
+    'blur_k_over_h': ('blur', dict(k=81)),
+    'dilate3x3': ('dilate', {}),
+}
+# cases at heights of their own
+LAYER_KINDS_ELSEWHERE = {'flaw_detector': ('fd', {})}
+LAYER_HEIGHTS = (33, 65)
+# the dilation 24 of ASPP on the 21-row map of OS 16 at 321 px; the flaw
+# detector's classifier on a 3-row map, whose one output row leaves rank 1
+# none; the whole flaw detector, whose classifier gives one row at 64 and
+# 65 px
+EXTRA_LAYER_CASES = (('conv3_d24', 21), ('fd_conv4_s2', 3),
+                     ('flaw_detector', 64), ('flaw_detector', 65))
+
+
+def layer_cases():
+    return [(name, h) for name in sorted(LAYER_KINDS)
+            for h in LAYER_HEIGHTS] + list(EXTRA_LAYER_CASES)
+
+
+def _rng(name, h):
+    return np.random.default_rng([h] + [ord(c) for c in name])
+
+
+def layer_case(name, h):
+    """(module or None, fn(x, h) -> out, the global input, the axis of H,
+    the global output height) of a case; the same on every rank."""
+    what, kw = LAYER_KINDS.get(name) or LAYER_KINDS_ELSEWHERE[name]
+    rng = _rng(name, h)
+    torch.manual_seed(h)
+    if what == 'fd':
+        # the whole flaw detector (ndf 8) in training: its classifier's one
+        # output row at these heights leaves rank 1 none
+        fd = FlawDetector(C, ndf=8)
+        fd.init_weights(torch.Generator().manual_seed(h))
+        x = rng.standard_normal((N, C, h, 64)).astype(np.float32)
+        return fd, (lambda x, hh: fd((x[:, :1],), x[:, 1:])), x, 2, h
+    nchw = rng.standard_normal((N, C, h, W)).astype(np.float32)
+    if what == 'conv':
+        conv = layers.Conv2d(C, 4, kw['k'], stride=kw['s'], padding=kw['p'],
+                             dilation=kw['d'], bias=True)
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(conv.weight.shape)).astype(np.float32)))
+            conv.bias.copy_(torch.from_numpy(rng.standard_normal(4).astype(
+                np.float32)))
+        return conv, (lambda x, hh: conv(x, hh)), nchw, 2, \
+            conv.out_height(h)
+    if what == 'pool':
+        return None, (lambda x, hh: layers.max_pool2d(x, 3, 2, 1, hh)), \
+            nchw, 2, spatial.conv_out(h, 3, 2, 1)
+    if what == 'resize':
+        h_out = max(2, int(round(h * kw['scale'])))
+        size = (h_out, int(round(W * kw['scale'])) + 1)
+        return None, (lambda x, hh: layers.resize_bilinear(
+            x, size, align_corners=True, h=hh)), nchw, 2, h_out
+    if what in ('bn', 'ibn'):
+        module = layers.SyncBatchNorm(C) if what == 'bn' else IBNorm(C)
+        for m in module.modules():
+            if isinstance(m, layers.SyncBatchNorm):
+                with torch.no_grad():
+                    m.weight.copy_(torch.from_numpy(
+                        rng.uniform(0.5, 1.5, m.num_features).astype(
+                            np.float32)))
+                    m.bias.copy_(torch.from_numpy(
+                        rng.standard_normal(m.num_features).astype(
+                            np.float32)))
+        return module, (lambda x, hh: module(x)), nchw * 3 + 1, 2, h
+    nhwc = np.ascontiguousarray(nchw[:, :1].transpose(0, 2, 3, 1))
+    if what == 'blur':
+        return None, (lambda x, hh: blur.gaussian_blur_fused(x, kw['k'])), \
+            nhwc, 1, h
+    return None, (lambda x, hh: ssl_gct._dilate3x3(x)), nhwc, 1, h
+
+
+def run_layer(name, h, mesh=None):
+    """The case's output, input gradient and parameter gradients (of the
+    sum of the output times a fixed random map) and buffers: of the whole
+    map without ``mesh``, of this rank's rows with it (the parameter
+    gradients this rank's part of them)."""
+    module, fn, x_full, h_dim, h_out = layer_case(name, h)
+    x = torch.from_numpy(x_full)
+    if module is not None:
+        module.train()
+        if mesh is not None:
+            for m in module.modules():
+                if isinstance(m, layers.SyncBatchNorm):
+                    m.sync = mesh
+    context = contextlib.nullcontext()
+    if mesh is not None:
+        lo, hi = spatial.local_rows(h, mesh)
+        x = x.narrow(h_dim, lo, hi - lo)
+        context = spatial.sharded(mesh, h)
+    x = x.clone().requires_grad_(True)
+    with context:
+        out = fn(x, h)
+    shape = list(out.shape)
+    shape[h_dim] = h_out
+    # gradients about 1 whatever the map's size
+    weight = torch.from_numpy((_rng(name + 'w', h).standard_normal(
+        shape) / np.sqrt(np.prod(shape))).astype(np.float32))
+    if mesh is not None:
+        lo, hi = spatial.local_rows(h_out, mesh)
+        weight = weight.narrow(h_dim, lo, hi - lo)
+    (out * weight).sum().backward()
+    params = {} if module is None else {
+        k: p.grad.detach().clone() for k, p in module.named_parameters()}
+    buffers = {} if module is None else {
+        k: b.detach().clone() for k, b in module.named_buffers()}
+    return {'out': out.detach(), 'grad': x.grad.detach(), 'params': params,
+            'buffers': buffers, 'h_dim': h_dim}
+
+
+def model_input(h, w, seed=0):
+    return np.random.default_rng(seed).standard_normal(
+        (1, h, w, 3)).astype(np.float32)
+
+
+def run_model(job, mesh):
+    """DeepLab-v2 eval forwards of this rank's rows of ``job['model']``'s
+    inputs (NHWC), from ``job['model']['state']``."""
+    spec = job['model']
+    net = DeepLabV2(backbone='resnet10', output_stride=16,
+                    num_classes=spec['num_classes'])
+    net.load_state_dict(spec['state'])
+    net.eval()
+    outs = []
+    for x in spec['inputs']:
+        x = torch.from_numpy(x).permute(0, 3, 1, 2)
+        lo, hi = spatial.local_rows(x.shape[2], mesh)
+        with torch.no_grad(), spatial.sharded(mesh, x.shape[2]):
+            outs.append(net(x[:, :, lo:hi].contiguous())[0])
+    return outs
+
+
+def run_layers(job, rank):
+    mesh = parallel.make_mesh_2d(job['world'])
+    out = {case: run_layer(case[0], case[1], mesh) for case in job['cases']}
+    return {'layers': out, 'model': run_model(job, mesh)}
+
+
+def run_steps(job, rank):
+    """``job['steps']`` train steps of each of ``job['runs']`` under
+    ``--spatial-train job['n_spatial']`` on this rank's samples and rows of
+    the run's global batch, from its states; counts the blurs of each
+    step and the strip heights they ran on."""
+    shapes = []
+    local = blur._blur_local
+
+    def counted(x, kernel_size):
+        shapes.append((tuple(x.shape), int(kernel_size)))
+        return local(x, kernel_size)
+
+    blur._blur_local = counted
+    results = {}
+    for name, run in job['runs'].items():
+        args = harness.default_args(run['algorithm'], **dict(
+            run['args'], spatial_train=job['n_spatial']))
+        algo = harness.build_algorithm(args, device='cpu',
+                                       iters_per_epoch=job['iters_per_epoch'])
+        for key, state in run['states'].items():
+            algo.modules[key].load_state_dict(state)
+        (img, gt), height = spatial.shard_train_batch(
+            (run['images'], run['labels']), args.labeled_batch_size,
+            args.unlabeled_batch_size, algo.mesh)
+        batch = dict(harness._to_batch(img, gt, 'cpu'), height=height)
+        metrics, blurs = [], []
+        for _ in range(job['steps']):
+            del shapes[:]
+            metrics.append({k: float(v) for k, v in
+                            algo.train_step(batch).items()})
+            blurs.append(list(shapes))
+        results[name] = {
+            'metrics': metrics, 'blurs': blurs,
+            'lbs': algo.ctx.lbs, 'ubs': algo.ctx.ubs, 'n_dev': algo.ctx.n_dev,
+            'grid': (algo.mesh.data_rank, algo.mesh.spatial_rank,
+                     algo.mesh.data_size, algo.mesh.n_spatial),
+            'rows': spatial.local_rows(height, algo.mesh),
+            'states': {k: m.state_dict() for k, m in algo.modules.items()}}
+    blur._blur_local = local
+    return results
+
+
+def run_script(job, rank):
+    """``run_script`` of ``job['config']`` from the environment ``torchrun``
+    would set; this rank's view of the run."""
+    import pixelssl_tpu_torch
+    from pixelssl_tpu_torch.tasks import sseg
+
+    proxy = pixelssl_tpu_torch.run_script(
+        dict(job['config']), sseg, sseg.SemanticSegmentationProxy,
+        device='cpu', cli_override=False)
+    algo = proxy.ssl_algorithm
+    return {'step': algo.state.step, 'batch_size': proxy.args.batch_size,
+            'lbs': algo.ctx.lbs, 'ubs': algo.ctx.ubs,
+            'n_devices': proxy.args.n_devices, 'lr': proxy.args.lr,
+            'val_len': len(proxy.val_loader),
+            'meters': {k: m.avg for k, m in algo.meters.items()
+                       if 'metric' in k or k.endswith('_loss')},
+            'states': {k: m.state_dict() for k, m in algo.modules.items()}}
+
+
+def main(job_path, rank, out_path):
+    torch.set_num_threads(1)
+    job = torch.load(job_path, weights_only=False)
+    rank = int(rank)
+    if job['kind'] == 'script':
+        os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                          WORLD_SIZE=str(job['world']),
+                          MASTER_ADDR='127.0.0.1',
+                          MASTER_PORT=str(job['port']))
+    else:
+        dist.init_process_group(
+            'gloo', init_method='tcp://127.0.0.1:{0}'.format(job['port']),
+            rank=rank, world_size=job['world'])
+    result = {'layers': run_layers, 'steps': run_steps,
+              'script': run_script}[job['kind']](job, rank)
+    torch.save(result, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == '__main__':
+    main(*sys.argv[1:])
