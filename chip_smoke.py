@@ -234,27 +234,35 @@ Phases, each printing a line as it ends:
     with rtol 1e-4;
 35. ``--spatial-train 2`` on two gloo ranks sharing the card, each with the
     rows of every image (``parallel/spatial.py``), against one process on
-    the whole batch: SupOnly 4+0, MT 4+4 with input noise and GCT 4+4 on
-    DeepLab-v2/ResNet-101 @321 in float32, cuDNN deterministic, lr 1e-5,
-    two steps from one set of weights: losses within rtol 2e-3 (the
-    thresholded ones 2e-2; GCT's losses that read the flaw detector on
-    the first step only), the weights after the first step within atol
+    the whole batch: SupOnly 4+0, MT 4+4 with input noise, GCT, AdvSSL,
+    S4L and CutMix 4+4 on DeepLab-v2/ResNet-101 @321 in float32, cuDNN
+    deterministic, lr 1e-5, two steps from one set of weights: losses
+    within rtol 2e-3 (the thresholded ones 2e-2; the losses that read
+    GCT's flaw detector or AdvSSL's D on the first step only), the
+    weights after the first step within atol
     1e-3 (BN statistics 1e-2), the ranks equal, the blur kernel 6 times a
     GCT step a rank on its strips of rows; each one's step ms, peak memory
     and the row exchanges' host ms, count and MiB a step;
 36. the 1-8 GCT script (2+2 @321, float32) through ``run_script`` with
-    ``--distributed --spatial-train 2`` on two gloo ranks against the same
-    in one process: 3 iterations and the validation, the first
-    iteration's losses within rtol 2e-3 (fc/dc 2e-2), every lr equal, the
-    later gaps printed, 6 blur launches an iteration a rank, the wall s
-    and peak memory of each;
-37. ``--spatial-val`` on two gloo ranks: SupOnly's DeepLab-v2/ResNet-101
-    validation of two 1025 px images (padded to 1056) in float32 against
-    one process's bucketed validation of the same padded images: losses
-    rtol 1e-5, scores atol 1e-4; the peak memory and ms an image of each.
-    Phase 3 also holds the kernel on the strips of rows of phases 35 and
-    36 ([8,181,321] k=21, [4,201,321] k=41, [4,241,321] k=81 on rank 0,
-    one row fewer on rank 1; the script's at 4+2 samples).
+    ``--distributed --spatial-train 2 --visualize`` on two gloo ranks
+    against the same in one process: 3 iterations, the first visualized,
+    and the validation, the first iteration's losses within rtol 2e-3
+    (fc/dc 2e-2), every lr equal, the later gaps printed, rank 0's PNGs
+    against one process's (names, sizes, inputs and GT equal; the model's
+    maps, against those one process draws on rank 0's weights of the
+    first step, at least 98% of coloured pixels the same and at most 1% of
+    gray ones more than a level apart), 6 blur launches an
+    iteration and 6 for the visualization on each rank, the wall s, peak
+    memory and a visualization's ms of each;
+37. ``--spatial-val --visualize`` on two gloo ranks: SupOnly's
+    DeepLab-v2/ResNet-101 validation of two 1025 px images (padded to
+    1056) in float32 against one process's bucketed validation of the same
+    padded images: losses rtol 1e-5, scores atol 1e-4, rank 0's PNGs
+    against one process's as in phase 36; the peak memory and ms an image
+    of each. Phase 3 also holds the kernel on the strips of rows of phases
+    35 and 36 ([8,181,321] k=21, [4,201,321] k=41, [4,241,321] k=81 on
+    rank 0, one row fewer on rank 1; the script's at 4+2 samples, its
+    visualization's at 4+4).
 
 Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33 and 35-37 print
 their step times and peak memory (the harness phases also the peak over the
@@ -3552,16 +3560,37 @@ SPATIAL_CASES = (
                     ignore_unlabeled=False, gaussian_noise_std=0.1,
                     lr=SPATIAL_LR)),
     ('ssl_gct', dict(GCT_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                     lr=SPATIAL_LR)))
-# the thresholded GCT losses and MT's consistency, against one process
+                     lr=SPATIAL_LR)),
+    ('ssl_adv', dict(ADV_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                     ignore_unlabeled=False, lr=SPATIAL_LR)),
+    ('ssl_s4l', dict(S4L_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                     ignore_unlabeled=False, lr=SPATIAL_LR)),
+    ('ssl_cutmix', dict(CUTMIX_CONFIG, batch_size=8, unlabeled_batch_size=4,
+                        ignore_unlabeled=False, lr=SPATIAL_LR)))
+# the thresholded GCT losses and the consistencies of MT and CutMix (its
+# confidence a thresholded pixel share), against one process
 SPATIAL_LOOSE = {'cons_loss', 'l_fc_loss', 'r_fc_loss', 'l_dc_loss',
                  'r_dc_loss'}
-# GCT's losses that read the flaw detector after its first Adam update,
-# which moves each weight whose gradient is 0 up to float32 noise by the lr
-# either way (``tests/test_torch_parallel.py``'s FD_ATOL): held on the
-# first step, their later gaps printed
+# the losses that read GCT's flaw detector or AdvSSL's D after its first
+# Adam update, which moves each weight whose gradient is 0 up to float32
+# noise by the lr either way (``tests/test_torch_parallel.py``'s FD_ATOL):
+# held on the first step, their later gaps printed
 SPATIAL_FD_KEYS = {'l_fc_loss', 'r_fc_loss', 'l_dc_loss', 'r_dc_loss',
-                   'l_fd_loss', 'r_fd_loss'}
+                   'l_fd_loss', 'r_fd_loss', 'labeled_adv_loss',
+                   'unlabeled_adv_loss', 'fake_d_loss', 'real_d_loss'}
+# --visualize under the two flags: the first iteration only (F13: two ranks
+# and one process are held on the first step), and each val batch at 1025
+# px
+SPATIAL_VISUAL_FREQ = 100
+# the model's maps of two ranks against one process's on the same weights:
+# the share of pixels of the same colour (prediction, pseudo-GT; a pixel
+# whose best two classes tie to float32 noise may flip) and the share of
+# gray pixels (flawmaps, their ground truth) more than a level apart. On
+# one process's own weights after a step they part much further (F13: a
+# random-weight ResNet-101 in eval mode magnifies the step's float32
+# difference), which is printed
+SPATIAL_COLOUR_SAME = 0.98
+SPATIAL_GRAY_APART = 0.01
 SPATIAL_VAL_SIZE = 1025
 SPATIAL_VAL_SAMPLES = 2
 
@@ -3586,13 +3615,15 @@ def peak_above(held):
 
 
 def spatial_blur_cases(batch_size, unlabeled_batch_size, im_size,
-                       rank=0):
-    """(N, H, W, k) of the blur calls of one GCT step on spatial rank
-    ``rank`` of ``SPATIAL_N``: its strip of rows [r0 - R, r1 + R)."""
+                       rank=0, cases=None):
+    """(N, H, W, k) of the blur calls of one GCT step (or of ``cases``,
+    whole-map calls at ``im_size``) on spatial rank ``rank`` of
+    ``SPATIAL_N``: its strip of rows [r0 - R, r1 + R)."""
     from pixelssl_tpu_torch.parallel import spatial
     lo, hi = spatial.row_range(im_size, SPATIAL_N, rank)
-    return [(n, hi - lo + 2 * (k // 2), w, k) for n, _, w, k in
-            gct_blur_cases(batch_size, unlabeled_batch_size, im_size)]
+    if cases is None:
+        cases = gct_blur_cases(batch_size, unlabeled_batch_size, im_size)
+    return [(n, hi - lo + 2 * (k // 2), w, k) for n, _, w, k in cases]
 
 
 def spatial_case(algo_name, config, seed, device='cuda'):
@@ -3626,7 +3657,8 @@ def spatial_case(algo_name, config, seed, device='cuda'):
     if distributed:
         (images, labels), height = spatial.shard_train_batch(
             (images, labels), args.labeled_batch_size,
-            args.unlabeled_batch_size, algo.mesh)
+            args.unlabeled_batch_size, algo.mesh,
+            spatial.pairs_unlabeled(args))
         batch = dict(harness._to_batch(images, labels, device),
                      height=height)
     else:
@@ -3732,12 +3764,14 @@ def state_gap(ours, theirs):
 def phase_spatial_train(seed):
     """``--spatial-train 2`` on two gloo ranks sharing the card
     (``worker_spatial``) against one process on the whole batch: SupOnly
-    4+0, MT 4+4 with input noise, GCT 4+4 at full width in float32,
+    4+0, MT 4+4 with input noise, GCT, AdvSSL, S4L and CutMix 4+4 (each
+    rank a share of each half of CutMix's unlabeled block) at full width
+    in float32,
     cuDNN deterministic, two steps from the same weights at lr
     ``SPATIAL_LR``. The losses of both steps within rtol 2e-3 (the
-    thresholded GCT losses and MT's consistency within 2e-2; GCT's
-    losses that read the flaw detector on the first step only, their
-    later gaps printed), the parameters after the first step within atol
+    thresholded GCT losses and the consistencies within 2e-2; the losses
+    that read GCT's flaw detector or AdvSSL's D on the first step only,
+    their later gaps printed), the parameters after the first step within atol
     1e-3 and the BN statistics within atol 1e-2 (after the second the
     gaps are printed: a random-weight ResNet-101 magnifies float32 noise
     step by step, one process against itself too), the ranks equal; each
@@ -3836,9 +3870,11 @@ def phase_spatial_train(seed):
 
 def spatial_script_config(out):
     """The 1-8 GCT script's config (2+2 @321, 12 samples: 3 iterations and
-    the validation of 12 images) in float32."""
+    the validation of 12 images) in float32, with ``--visualize`` at the
+    first iteration and the first val batch."""
     config = script_config(SCRIPT_GCT, out, 'ssl_gct')
-    config.update(bf16=False, num_workers=1)
+    config.update(bf16=False, num_workers=1, visualize=True,
+                  visual_freq=SPATIAL_VISUAL_FREQ)
     return config
 
 
@@ -3852,11 +3888,130 @@ def gloo_on_card_0():
     os.environ['LOCAL_RANK'] = '0'
 
 
+@contextlib.contextmanager
+def timed_visualizations(save_to=None, again=None):
+    """Each train-side visualization (``SSLBase._visualize``) while the
+    block runs, timed: yields a list that gets its wall ms (the card
+    synchronised around it) and its blur launches. ``save_to``: rank 0
+    saves every module's state there after it (the weights it drew with).
+    ``again`` (such a state file, a folder): the same batch is then
+    visualized again on those weights into the folder, its blur launches
+    counted apart, and the weights put back."""
+    import torch
+    from pixelssl_tpu_torch.ops import blur
+    from pixelssl_tpu_torch.ssl_algorithm import ssl_base
+
+    seen = []
+    visualize = ssl_base.SSLBase._visualize
+
+    def timed(self, batch, name):
+        torch.cuda.synchronize()
+        t0, launches = time.perf_counter(), blur.launches
+        visualize(self, batch, name)
+        torch.cuda.synchronize()
+        seen.append({'ms': 1e3 * (time.perf_counter() - t0),
+                     'launches': blur.launches - launches})
+        if save_to is not None and self.mesh.rank == 0:
+            torch.save({k: m.state_dict() for k, m in self.modules.items()},
+                       save_to)
+        if again is not None:
+            kept = {k: {n: t.clone() for n, t in m.state_dict().items()}
+                    for k, m in self.modules.items()}
+            theirs = torch.load(again[0], map_location=self.device,
+                                weights_only=True)
+            folder, self.args.visual_train_path = \
+                self.args.visual_train_path, again[1]
+            launches = blur.launches
+            try:
+                for k, m in self.modules.items():
+                    m.load_state_dict(theirs[k])
+                visualize(self, batch, name)
+            finally:
+                self.args.visual_train_path = folder
+                for k, m in self.modules.items():
+                    m.load_state_dict(kept[k])
+            seen[-1]['again_launches'] = blur.launches - launches
+
+    ssl_base.SSLBase._visualize = timed
+    try:
+        yield seen
+    finally:
+        ssl_base.SSLBase._visualize = visualize
+
+
+def read_pngs(folder, prefix=''):
+    """{prefix + name: pixels} of the PNGs in ``folder``."""
+    from pixelssl_tpu_torch.nn import imageio
+    return {prefix + name: imageio.read_png(os.path.join(folder, name))
+            for name in sorted(os.listdir(folder))}
+
+
+def visual_pngs(config):
+    """{folder/name: pixels} of the PNGs of a ``run_script`` of
+    ``config``."""
+    base = os.path.join(config['out_path'], config['exp_id'],
+                        'visualization')
+    out = {}
+    for sub in ('debug', 'train', 'val'):
+        out.update(read_pngs(os.path.join(base, sub), sub + '/'))
+    return out
+
+
+def compare_visuals(tag, what, ranks, one, same=None):
+    """Rank 0's PNGs against one process's: the same names and sizes,
+    the input and GT panels equal; the model's maps within
+    ``SPATIAL_COLOUR_SAME`` / ``SPATIAL_GRAY_APART`` of those one process
+    draws on the same weights: ``one``'s own, or ``same``'s (the train
+    maps one process drew again on rank 0's weights), and then their
+    distance from ``one``'s, drawn on one process's weights, only
+    printed (F13). Returns the worst shares, held and printed."""
+    import numpy as np
+    if sorted(ranks) != sorted(one):
+        raise AssertionError('{0} {1}: PNG names {2} vs {3}'.format(
+            tag, what, sorted(ranks), sorted(one)))
+    worst = {'colour_same': 1.0, 'gray_apart': 0.0,
+             'own_colour_same': 1.0, 'own_gray_apart': 0.0}
+
+    def gaps(prefix, got, px):
+        if px.ndim == 3:
+            key = prefix + 'colour_same'
+            worst[key] = min(worst[key], float((got == px).all(-1).mean()))
+        else:
+            key = prefix + 'gray_apart'
+            worst[key] = max(worst[key], float(
+                (np.abs(got.astype(int) - px) > 1).mean()))
+
+    for name, px in one.items():
+        got = ranks[name]
+        if got.shape != px.shape:
+            raise AssertionError('{0} {1}: {2} {3} vs {4}'.format(
+                tag, what, name, got.shape, px.shape))
+        if name.endswith(('1-inp.png', '3-gt.png')):
+            if not np.array_equal(got, px):
+                raise AssertionError('{0} {1}: {2} differs'.format(
+                    tag, what, name))
+        elif same is None:
+            gaps('', got, px)
+        else:
+            gaps('own_', got, px)
+            if name in same:
+                gaps('', got, same[name])
+    if same is not None and not set(same) <= set(one):
+        raise AssertionError('{0} {1}: {2} not among {3}'.format(
+            tag, what, sorted(same), sorted(one)))
+    if worst['colour_same'] < SPATIAL_COLOUR_SAME or \
+            worst['gray_apart'] > SPATIAL_GRAY_APART:
+        raise AssertionError('{0} {1}: the model\'s maps differ from one '
+                             'process\'s: {2}'.format(tag, what, worst))
+    return worst
+
+
 def worker_spatial_script(out):
     """One of phase 36's two ranks: the 1-8 GCT script through
-    ``run_script`` with ``--distributed --spatial-train 2``, cuDNN
-    deterministic, both ranks on card 0 over gloo; writes
-    ``rank<r>.json`` into ``out``."""
+    ``run_script`` with ``--distributed --spatial-train 2 --visualize``
+    (the first iteration visualized), cuDNN deterministic, both ranks on
+    card 0 over gloo; writes ``rank<r>.json`` into ``out``, and rank 0 the
+    weights it visualized with, ``visual_state.pt``."""
     import torch
     import pixelssl_tpu_torch
     from pixelssl_tpu_torch.ops import blur
@@ -3872,12 +4027,15 @@ def worker_spatial_script(out):
     blur.launches = 0
     held = reset_peak()
     t0 = time.perf_counter()
-    proxy = pixelssl_tpu_torch.run_script(
-        config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
-        cli_override=False)
+    with timed_visualizations(save_to=os.path.join(
+            out, 'visual_state.pt')) as visualized:
+        proxy = pixelssl_tpu_torch.run_script(
+            config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
+            cli_override=False)
     torch.cuda.synchronize()
     algo = proxy.ssl_algorithm
     result = {'launches': blur.launches, 'step': algo.state.step,
+              'visualized': visualized,
               'wall_s': time.perf_counter() - t0,
               'peak_gib': peak_above(held),
               'grid': (algo.mesh.data_size, algo.mesh.n_spatial),
@@ -3892,13 +4050,17 @@ def worker_spatial_script(out):
 
 def phase_spatial_script():
     """The 1-8 GCT script (2+2 @321, float32) through ``run_script`` with
-    ``--distributed --spatial-train 2`` on two gloo ranks sharing the card,
-    against the same script in one process: 3 iterations and the
-    validation. The first iteration's losses within rtol 2e-3 (the
+    ``--distributed --spatial-train 2 --visualize`` on two gloo ranks
+    sharing the card, against the same script in one process: 3
+    iterations, the first visualized, and the validation, its first batch
+    visualized. The first iteration's losses within rtol 2e-3 (the
     thresholded fc/dc 2e-2), every record's lr equal, the later records'
     and the validation's gaps printed (scores in [0, 1], losses finite);
-    blur launches 6 an iteration on each rank. Returns rank 0's
-    launches."""
+    rank 0's PNGs against one process's (``compare_visuals``: the train
+    maps held against those one process draws on rank 0's weights of the
+    visualization, both runs' own printed); blur launches 6 an iteration
+    and 6 more for the visualization on each rank. Returns rank 0's
+    launches and its visualization's."""
     import tempfile
     import torch
     import pixelssl_tpu_torch
@@ -3924,9 +4086,13 @@ def phase_spatial_script():
             torch.cuda.synchronize()
             held = reset_peak()
             t0 = time.perf_counter()
-            proxy = pixelssl_tpu_torch.run_script(
-                config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
-                cli_override=False)
+            same = os.path.join(out, 'same')
+            os.makedirs(same)
+            with timed_visualizations(again=(os.path.join(
+                    out, 'visual_state.pt'), same)) as one_visualized:
+                proxy = pixelssl_tpu_torch.run_script(
+                    config, sseg, sseg.SemanticSegmentationProxy,
+                    device='cuda', cli_override=False)
             torch.cuda.synchronize()
             one_wall = time.perf_counter() - t0
             one_peak = peak_above(held)
@@ -3934,6 +4100,10 @@ def phase_spatial_script():
             one_records = read_records(config)
             iters = len(proxy.train_loader)
             del proxy
+            rank_config = spatial_script_config(os.path.join(out, 'run'))
+            visual_gap = compare_visuals(
+                tag, 'GCT script --visualize', visual_pngs(rank_config),
+                visual_pngs(config), read_pngs(same, 'train/'))
         gaps = {'first': 0.0, 'first_loose': 0.0, 'later': 0.0,
                 'val_loss': 0.0, 'score': 0.0}
         records = ranks[0]['records']
@@ -3973,7 +4143,9 @@ def phase_spatial_script():
                                              '{3}'.format(tag, k, a[k], v))
         for rank, r in enumerate(ranks):
             if r['grid'] != [1, SPATIAL_N] or r['step'] != iters or \
-                    r['launches'] != BLUR_LAUNCHES_PER_STEP * iters:
+                    r['launches'] != BLUR_LAUNCHES_PER_STEP * (iters + 1) or \
+                    [v['launches'] for v in r['visualized']] != \
+                    [BLUR_LAUNCHES_PER_STEP]:
                 raise AssertionError('{0} rank {1}: {2}'.format(
                     tag, rank, {k: v for k, v in r.items()
                                 if k != 'records'}))
@@ -3995,17 +4167,39 @@ def phase_spatial_script():
                                           for r in ranks), one_peak,
                 ' / '.join('{0:.2f} GiB'.format(r['peak_gib'])
                            for r in ranks)))
+        say('{0} --visualize: rank 0 wrote one process\'s PNG names and '
+            'sizes, inputs and GT equal; its model maps against one '
+            'process\'s on the same weights (rank 0\'s after the first '
+            'step) {1:.4f} of the coloured pixels the same, {2:.4f} of the '
+            'gray ones more than a level apart; against one process\'s own '
+            'run (its weights, and the val maps after 3 steps) {3:.4f}, '
+            '{4:.4f}; a visualization {5:.1f} ms of wall time one process, '
+            'ranks {6}; blur launches of a visualization, ranks {7}'.format(
+                tag, visual_gap['colour_same'], visual_gap['gray_apart'],
+                visual_gap['own_colour_same'], visual_gap['own_gray_apart'],
+                one_visualized[0]['ms'],
+                ' / '.join('{0:.1f}'.format(r['visualized'][0]['ms'])
+                           for r in ranks),
+                ' / '.join(str(r['visualized'][0]['launches'])
+                           for r in ranks)))
+        # one process: the iterations, its visualization and the one again
+        # on rank 0's weights
+        if one_launches != BLUR_LAUNCHES_PER_STEP * (iters + 2) or \
+                one_visualized[0]['again_launches'] != \
+                BLUR_LAUNCHES_PER_STEP:
+            raise AssertionError('{0} one process: {1} blur launches'
+                                 .format(tag, one_launches))
     finally:
         torch.backends.cudnn.deterministic = False
         torch.backends.cudnn.benchmark = True
-    return ranks[0]['launches']
+    return ranks[0]['launches'], ranks[0]['visualized'][0]['launches']
 
 
 def spatial_val_config(out, seed):
     """SupOnly on DeepLab-v2/ResNet-101 @``SPATIAL_VAL_SIZE`` (padded to
     the 32-px bucket, 1056), 21 classes, float32, validation only of
     ``SPATIAL_VAL_SAMPLES`` synthetic images, random weights from
-    ``seed``."""
+    ``seed``, each image's PNGs written (``--visualize``)."""
     import collections
     return collections.OrderedDict([
         ('exp_id', 'spatial_val'), ('out_path', out),
@@ -4020,12 +4214,14 @@ def spatial_val_config(out, seed):
         ('backbone', 'resnet101'), ('output_stride', 16),
         ('im_size', SPATIAL_VAL_SIZE), ('num_classes', 21),
         ('batch_size', 1), ('unlabeled_batch_size', 0), ('bf16', False),
-        ('lr', 2.5e-4), ('num_workers', 0), ('seed', seed)])
+        ('lr', 2.5e-4), ('num_workers', 0), ('seed', seed),
+        ('visualize', True), ('visual_freq', 1)])
 
 
 def spatial_val_run(config):
-    """``run_script`` of ``config``; (scores and losses, wall s, peak GiB,
-    the eval forward's ms per image)."""
+    """``run_script`` of ``config``; (scores and losses, wall s, peak GiB
+    of the run and of a second validation without the PNGs, the eval
+    forward's ms per image on that one, and the PNGs of the first)."""
     import torch
     import pixelssl_tpu_torch
     from pixelssl_tpu_torch.tasks import sseg
@@ -4041,14 +4237,18 @@ def spatial_val_run(config):
     algo = proxy.ssl_algorithm
     scores = {k: m.avg for k, m in algo.meters.items()
               if 'metric' in k or k.endswith('_loss')}
+    pngs = visual_pngs(config) if algo.mesh.rank == 0 else None
+    peak = peak_above(held)
+    algo.args.visualize = False
+    torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     algo.validate(proxy.val_loader, 0)
     end.record()
     torch.cuda.synchronize()
-    return (scores, wall, peak_above(held),
-            start.elapsed_time(end) / len(proxy.val_loader))
+    return (scores, wall, (peak, peak_above(held)),
+            start.elapsed_time(end) / len(proxy.val_loader), pngs)
 
 
 def worker_spatial_val(out, seed):
@@ -4061,7 +4261,7 @@ def worker_spatial_val(out, seed):
     gloo_on_card_0()
     config = spatial_val_config(os.path.join(out, 'run'), seed)
     config.update(spatial_val=True, distributed=True)
-    scores, wall, peak, ms = spatial_val_run(config)
+    scores, wall, peak, ms, _ = spatial_val_run(config)
     rank = torch.distributed.get_rank()
     with open(os.path.join(out, 'rank{0}.json'.format(rank)), 'w') as f:
         json.dump({'scores': scores, 'wall_s': wall, 'peak_gib': peak,
@@ -4071,12 +4271,14 @@ def worker_spatial_val(out, seed):
 
 
 def phase_spatial_val(seed):
-    """``--spatial-val`` on two gloo ranks sharing the card against one
-    process's bucketed validation of the same padded images: SupOnly on
-    DeepLab-v2/ResNet-101 at 1025 px (padded to 1056), float32, cuDNN
-    deterministic; losses rtol 1e-5, scores atol 1e-4 (a pixel whose best
-    two logits tie to float noise may take the other class); each one's
-    peak memory and ms an image printed."""
+    """``--spatial-val --visualize`` on two gloo ranks sharing the card
+    against one process's bucketed validation of the same padded images:
+    SupOnly on DeepLab-v2/ResNet-101 at 1025 px (padded to 1056), float32,
+    cuDNN deterministic; losses rtol 1e-5, scores atol 1e-4 (a pixel whose
+    best two logits tie to float noise may take the other class); rank 0's
+    PNGs of each image, from the rows both ranks hold, against one
+    process's (``compare_visuals``); each one's peak memory and ms an
+    image printed."""
     import tempfile
     import torch
 
@@ -4092,8 +4294,11 @@ def phase_spatial_val(seed):
             for r in range(SPATIAL_N):
                 with open(os.path.join(out, 'rank{0}.json'.format(r))) as f:
                     ranks.append(json.load(f))
-            scores, one_wall, one_peak, one_ms = spatial_val_run(
+            scores, one_wall, one_peak, one_ms, one_pngs = spatial_val_run(
                 spatial_val_config(os.path.join(out, 'one'), seed))
+            rank_config = spatial_val_config(os.path.join(out, 'run'), seed)
+            visual_gap = compare_visuals(tag, '--spatial-val --visualize',
+                                         visual_pngs(rank_config), one_pngs)
         gaps = {'loss': 0.0, 'score': 0.0}
         for rank, r in enumerate(ranks):
             if set(r['scores']) != set(scores):
@@ -4118,11 +4323,17 @@ def phase_spatial_val(seed):
                          '  '.join('{0} {1:.5f}'.format(k, v) for k, v in
                                    sorted(scores.items())),
                          -(-SPATIAL_VAL_SIZE // 32) * 32))
-        say('{0} peak memory (above what each held) one process {1:.2f} '
-            'GiB, a rank {2}; ms an image one process {3:.1f}, ranks {4}'
+        say('{0} --visualize: rank 0 wrote one process\'s {1} PNGs of the '
+            'padded images, inputs and GT equal, the predictions {2:.4f} of '
+            'the pixels the same colour'.format(tag, len(one_pngs),
+                                               visual_gap['colour_same']))
+        say('{0} peak memory (above what each held; the run with its '
+            'PNGs, then a validation without) one process {1:.2f} / {2:.2f} '
+            'GiB, a rank {3}; ms an image one process {4:.1f}, ranks {5}'
             .format(
-                tag, one_peak, ' / '.join('{0:.2f} GiB'.format(r['peak_gib'])
-                                          for r in ranks), one_ms,
+                tag, one_peak[0], one_peak[1], ' / '.join(
+                    '{0:.2f} / {1:.2f} GiB'.format(*r['peak_gib'])
+                    for r in ranks), one_ms,
                 ' / '.join('{0:.1f}'.format(r['ms_per_image'])
                            for r in ranks)))
     finally:
@@ -4202,7 +4413,10 @@ def main(argv=None):
             'spatial_gct_rank1': spatial_blur_cases(*GCT_BATCH, IM_SIZE,
                                                     rank=1),
             'spatial_script_gct': spatial_blur_cases(
-                *script_batch(SCRIPT_GCT))})
+                *script_batch(SCRIPT_GCT)),
+            'spatial_visualize_gct': spatial_blur_cases(
+                *script_batch(SCRIPT_GCT),
+                cases=script_debug_blur_cases(SCRIPT_GCT))})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -4241,7 +4455,8 @@ def main(argv=None):
         dist_launches = run('33', phase_distributed)
         run('34', phase_gloo, opts.seed)
         spatial_launches = run('35', phase_spatial_train, opts.seed)
-        spatial_script_launches = run('36', phase_spatial_script)
+        spatial_script_launches, spatial_visual_launches = run(
+            '36', phase_spatial_script)
         run('37', phase_spatial_val, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
@@ -4285,11 +4500,15 @@ def main(argv=None):
     distributed_step = dict(script_step, launches=dist_launches)
     # phase 35's GCT under --spatial-train 2 (8+4 @321 in float32): rank
     # 0's strips of rows; launches over its 2 steps on rank 0. Phase 36's
-    # GCT script the same at 2+2, launches over its 3 iterations on rank 0
+    # GCT script the same at 2+2, launches over its 3 iterations and its
+    # visualization on rank 0; the visualization's debug maps on rank 0's
+    # strips of the whole batch, launches its own
     spatial_step = per_step('spatial_gct')
     spatial_step['launches'] = spatial_launches
     spatial_script_step = per_step('spatial_script_gct')
     spatial_script_step['launches'] = spatial_script_launches
+    spatial_visualize_step = per_step('spatial_visualize_gct')
+    spatial_visualize_step['launches'] = spatial_visual_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -4331,7 +4550,11 @@ def main(argv=None):
                'spatial_gct_rank1), launches over its 2 steps on rank 0; '
                'spatial_script_gct: the same for the GCT script under '
                '--spatial-train 2 (phase 36, 2+2), launches over its 3 '
-               'iterations on rank 0',
+               'iterations and its visualized one on rank 0; '
+               'spatial_visualize_gct: the debug maps of that '
+               'visualization (the whole batch, 2+2, on rank 0\'s strips), '
+               '2x each call of path spatial_visualize_gct, launches of '
+               'the visualization on rank 0',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
@@ -4341,6 +4564,7 @@ def main(argv=None):
         'distributed_gct': distributed_step,
         'spatial_gct': spatial_step,
         'spatial_script_gct': spatial_script_step,
+        'spatial_visualize_gct': spatial_visualize_step,
         'calls': rows,
     }
     say('chip_smoke: all 37 phases passed in {0:.1f} s (each phase\'s wall '

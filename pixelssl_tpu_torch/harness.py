@@ -98,7 +98,7 @@ def synthetic_batch(args, device='cuda', seed=0):
     if n_spatial > 1:
         (img, gt), height = spatial.shard_train_batch(
             (img, gt), args.labeled_batch_size, args.unlabeled_batch_size,
-            spatial.grid_position(n_spatial))
+            spatial.grid_position(n_spatial), spatial.pairs_unlabeled(args))
         return dict(_to_batch(img, gt, device), height=height)
     return _to_batch(img, gt, device)
 

@@ -7,11 +7,19 @@ spatial mean, and a linear head ``fc`` over the four angles, in float32.
 The head is named ``fc``, not ``classifier``, so that the task model's 10x
 lr rule never matches it. With ``bf16`` the convolutions and the head run
 under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
+
+Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
+of maps of the context's height: the convolutions run row-sharded
+(``models/layers.Conv2d``), BatchNorm sums its statistics over the grid
+(``sync``), and the spatial mean is summed over the spatial group
+(``spatial.channel_mean``), so that every rank of it gives the same
+logits.
 """
 
 import torch.nn as nn
 
-from .layers import (SyncBatchNorm, bf16_autocast, lecun_normal_,
+from ..parallel import spatial
+from .layers import (Conv2d, SyncBatchNorm, bf16_autocast, lecun_normal_,
                      leaky_relu_02)
 
 
@@ -19,11 +27,11 @@ class RotationClassifier(nn.Module):
     def __init__(self, in_channels, bf16=False):
         super(RotationClassifier, self).__init__()
         self.bf16 = bf16
-        self.conv1 = nn.Conv2d(in_channels, in_channels, 4, stride=2,
-                               padding=1)
+        self.conv1 = Conv2d(in_channels, in_channels, 4, stride=2,
+                            padding=1)
         self.bn1 = SyncBatchNorm(in_channels)
-        self.conv2 = nn.Conv2d(in_channels, in_channels * 2, 4, stride=2,
-                               padding=1)
+        self.conv2 = Conv2d(in_channels, in_channels * 2, 4, stride=2,
+                            padding=1)
         self.bn2 = SyncBatchNorm(in_channels * 2)
         self.fc = nn.Linear(in_channels * 2, 4)
 
@@ -37,8 +45,10 @@ class RotationClassifier(nn.Module):
 
     def forward(self, x):
         """[N,C,H,W] -> rotation logits [N,4], float32."""
+        h = spatial.global_height(x)
+        h1 = self.conv1.out_height(h)
         with bf16_autocast(x, self.bf16):
-            x = leaky_relu_02(self.bn1(self.conv1(x)))
-            x = leaky_relu_02(self.bn2(self.conv2(x)))
-            x = self.fc(x.mean(dim=(2, 3)))
+            x = leaky_relu_02(self.bn1(self.conv1(x, h)))
+            x = leaky_relu_02(self.bn2(self.conv2(x, h1)))
+            x = self.fc(spatial.channel_mean(x, self.conv2.out_height(h1)))
         return x.float()

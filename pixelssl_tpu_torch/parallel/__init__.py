@@ -3,12 +3,12 @@
 and the collectives of a step), ``multihost`` (the process group and each
 rank's slice of the input) and ``spatial`` (``--spatial-train``,
 ``--spatial-val``: rows of each image over ranks, with hand-written halo
-exchanges; SupOnly, MT and GCT on DeepLab-v2, ROADMAP A4c-1)."""
+exchanges; SupOnly, MT, AdvSSL, S4L, GCT and CutMix on DeepLab-v2, and
+``--visualize``, ROADMAP A4c-1 and A4c-2)."""
 
-from .mesh import (Mesh, make_mesh, all_sum, psum_if_parallel,
-                   pmean_if_parallel, fold_rng, all_reduce_grads,
-                   broadcast_module, barrier, reorder_two_stream,
-                   reorder_two_stream_steps)
+from .mesh import (Mesh, make_mesh, all_sum, psum_if_parallel, fold_rng,
+                   all_reduce_grads, broadcast_module, barrier,
+                   reorder_two_stream, reorder_two_stream_steps)
 from .spatial import (make_mesh_2d, is_spatial_mesh, data_axis_size,
                       pad_height_to, row_range, fetch_rows)
 from . import multihost

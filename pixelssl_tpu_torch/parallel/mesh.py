@@ -147,13 +147,6 @@ def psum_if_parallel(tensor, mesh, group=None):
     return out
 
 
-def pmean_if_parallel(tensor, mesh):
-    """``tensor`` averaged over the ranks (JAX ``pmean_if_parallel``)."""
-    if mesh is None or not mesh.distributed:
-        return tensor
-    return psum_if_parallel(tensor, mesh) / mesh.world_size
-
-
 def fold_rng(entropy, mesh):
     """The entropy of a step's seed with the data coordinate folded in
     where more than one data rank draws (JAX ``fold_rng`` folds the axis

@@ -24,7 +24,13 @@ partitioner, so the port does it by hand:
 * per-sample reductions over H become shares (``sample_mean``: the local
   sum over the global count), whose sum over the spatial group is the
   sample's value; per-sample extrema reduce over the spatial group
-  (``sample_max``, ``sample_min``).
+  (``sample_max``, ``sample_min``); a per-sample channel mean whose value
+  every rank of the group needs (S4L's rotation head) is summed over the
+  group (``channel_mean``), and a vector every rank of the group holds
+  whole counts once, on spatial rank 0 (``whole_share``);
+* a whole map, where rows must become columns (S4L's rotations) or be
+  written (``--visualize``, on spatial rank 0), is every rank's rows
+  fetched (``whole_rows``).
 
 Transport: with NCCL a ``batch_isend_irecv`` of the rows on the card (a
 CUDA graph captures it); with gloo, whose send and receive take CPU tensors
@@ -45,18 +51,25 @@ import torch
 import torch.distributed as dist
 
 from . import mesh as mesh_lib
+from . import multihost
 
 # what ``make_mesh_2d`` refuses where the port has not got it yet: the
 # algorithm, model or task, and the ROADMAP item that brings it
-_NOT_YET = {'ssl_adv': 'A4c-2', 'ssl_s4l': 'A4c-2', 'ssl_cutmix': 'A4c-2',
-            'ssl_cct': 'A4c-3', 'pspnet': 'A4c-3', 'unet_lite': 'A4c-3',
+_NOT_YET = {'ssl_cct': 'A4c-3', 'pspnet': 'A4c-3', 'unet_lite': 'A4c-3',
             'sreg': 'A4c-3'}
+
+# the algorithms that pair unlabeled sample i with sample i + U/2 of the
+# step's unlabeled block (CutMix's mixing, JAX ssl_cutmix.py:115-133, whose
+# GSPMD step sees the global block): under ``--spatial-train`` each data
+# coordinate holds its share of each half (``local_samples``)
+PAIRED = ('ssl_cutmix',)
 
 
 def unsupported(args, task):
     """Why ``args`` of ``task`` cannot run spatially partitioned yet (an
-    error naming the ROADMAP item), or None: SupOnly, MT and GCT on
-    DeepLab-v2 for the ``sseg`` task run, without ``--visualize``."""
+    error naming the ROADMAP item), or None: SupOnly, MT, AdvSSL, S4L, GCT
+    and CutMix on DeepLab-v2 for the ``sseg`` task run, with or without
+    ``--visualize``."""
     flag = ('--spatial-train' if int(getattr(args, 'spatial_train', 0) or 0)
             > 1 else '--spatial-val')
     names = ([task, args.ssl_algorithm] +
@@ -65,10 +78,13 @@ def unsupported(args, task):
         if name in _NOT_YET:
             return '{0} with {1} is not ported to pixelssl_tpu_torch yet ' \
                 '(ROADMAP {2})'.format(flag, name, _NOT_YET[name])
-    if getattr(args, 'visualize', False):
-        return '{0} with --visualize is not ported to pixelssl_tpu_torch ' \
-            'yet (ROADMAP A4c-2)'.format(flag)
     return None
+
+
+def pairs_unlabeled(args):
+    """Whether ``args``'s algorithm pairs its unlabeled samples across
+    the halves of the block (``PAIRED``)."""
+    return getattr(args, 'ssl_algorithm', None) in PAIRED
 
 
 def make_mesh_2d(n_spatial, mesh=None):
@@ -207,6 +223,44 @@ def sample_mean(x, h_dim=2):
         return x.mean(dim=dims)
     count = x[0].numel() // max(x.shape[h_dim], 1) * _active.height
     return x.sum(dim=dims) / count
+
+
+def channel_mean(x, h):
+    """Per-sample, per-channel mean over H x W of a [N,C,H,W] map, [N,C];
+    inside a context that of the map ``h`` rows high whose rows the spatial
+    group holds, the same on every rank of it: the local sums in float32
+    summed over the group (``all_sum``, whose backward sums the ranks'
+    gradients, so that each rank's rows get the whole gradient)."""
+    if _active is None:
+        return x.mean(dim=(2, 3))
+    mesh = _active.mesh
+    total = x.float().sum(dim=(2, 3))
+    if mesh.distributed and mesh.n_spatial > 1:
+        total = mesh_lib.all_sum(total, mesh, mesh.spatial_group)
+    return (total / (int(h) * x.shape[3])).to(x.dtype)
+
+
+def whole_share(vec):
+    """A per-sample vector that every rank of a spatial group holds whole
+    (S4L's rotation logits give one) as shares whose sum over the group is
+    the vector: itself on spatial rank 0, zeros in the graph on the others
+    (their backward joins every exchange). Itself outside a context."""
+    if _active is None or _active.mesh.spatial_rank == 0:
+        return vec
+    return vec * 0.0
+
+
+def pixel_mean(x, mesh):
+    """The mean of every element of ``x`` over the ranks of ``mesh``, each
+    element counted once (uneven row blocks weigh by their rows, not by
+    rank), no gradient; ``x.mean()`` in one process."""
+    x = x.detach().float()
+    if mesh is None or not mesh.distributed:
+        return x.mean()
+    sums = torch.stack([x.sum(), torch.full((), float(x.numel()),
+                                            device=x.device)])
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.group)
+    return sums[0] / sums[1]
 
 
 def _sample_extremum(x, op):
@@ -418,18 +472,39 @@ def fetch_rows(x, h, rows, mesh, fill=ZERO, dim=2):
     return _FetchRows.apply(x, plan, mesh, dim, _FILL_VALUES[fill])
 
 
+def whole_rows(x, dim=2, to=None):
+    """Every row of a map of which ``x`` holds this rank's rows along
+    ``dim`` at the context's height, on every rank of the spatial group (a
+    ``fetch_rows`` of [0, H) for each), or on spatial rank ``to`` alone
+    (the others get no rows); ``x`` itself outside a context."""
+    if _active is None:
+        return x
+    h = _active.height
+    rows = tuple((0, h) if to is None or q == to else (0, 0)
+                 for q in range(_active.mesh.n_spatial))
+    return fetch_rows(x, h, rows, _active.mesh, ZERO, dim)
+
+
 # ---------------------------------------------------------------------------
 # batches on the host
 # ---------------------------------------------------------------------------
 
-def local_samples(lbs, ubs, mesh):
-    """The two blocks [a, b) of the global labeled-first batch (``lbs`` +
+def local_samples(lbs, ubs, mesh, paired=False):
+    """The blocks [a, b) of the global labeled-first batch (``lbs`` +
     ``ubs``) that the ranks of this data coordinate hold: its labeled and
-    its unlabeled chunk (``parallel.reorder_two_stream``'s block)."""
+    its unlabeled chunk (``parallel.reorder_two_stream``'s block); with
+    ``paired`` (``pairs_unlabeled``) its chunk of each half of the
+    unlabeled block instead, so that its unlabeled sample i + U/2D is the
+    partner of its sample i, as sample i + U/2 is of sample i in the
+    global block."""
     n, d = mesh.data_size, mesh.data_rank
     lbs_l, ubs_l = lbs // n, ubs // n
-    return ((d * lbs_l, (d + 1) * lbs_l),
-            (lbs + d * ubs_l, lbs + (d + 1) * ubs_l))
+    labeled = (d * lbs_l, (d + 1) * lbs_l)
+    if not paired:
+        return (labeled, (lbs + d * ubs_l, lbs + (d + 1) * ubs_l))
+    half, h = ubs // 2, ubs_l // 2
+    return (labeled, (lbs + d * h, lbs + (d + 1) * h),
+            (lbs + half + d * h, lbs + half + (d + 1) * h))
 
 
 def grid_position(n_spatial, rank=None, world_size=None):
@@ -444,14 +519,14 @@ def grid_position(n_spatial, rank=None, world_size=None):
                          spatial=True)
 
 
-def shard_train_batch(arrays, lbs, ubs, mesh):
+def shard_train_batch(arrays, lbs, ubs, mesh, paired=False):
     """This rank's part of global labeled-first NHWC/[N,H,W] host arrays:
     the samples of its data coordinate (``local_samples``) and its rows;
     returns (arrays, global height)."""
     out = []
     for a in arrays:
-        a = np.concatenate([a[s:e] for s, e in local_samples(lbs, ubs,
-                                                               mesh)])
+        a = np.concatenate([a[s:e] for s, e in local_samples(
+            lbs, ubs, mesh, paired)])
         lo, hi = local_rows(a.shape[1], mesh)
         out.append(np.ascontiguousarray(a[:, lo:hi]))
     return tuple(out), int(arrays[0].shape[1])
@@ -465,3 +540,18 @@ def host_rows(tensors, mesh):
         lo, hi = local_rows(t.shape[1], mesh)
         out.append(t.narrow(1, lo, hi - lo).contiguous())
     return tuple(out)
+
+
+class GridSampler(multihost.ProcessShardedSampler):
+    """``ProcessShardedSampler`` on a grid: each rank cuts every global
+    batch to the samples of its data coordinate (``local_samples``, their
+    pairs kept with ``paired``)."""
+
+    def __init__(self, sampler, lbs, ubs, mesh, paired=False):
+        super(GridSampler, self).__init__(sampler, lbs, ubs,
+                                          [mesh.data_rank], mesh.data_size)
+        self.blocks = local_samples(lbs, ubs, mesh, paired)
+
+    def shard(self, batch):
+        batch = list(batch)
+        return [batch[i] for a, b in self.blocks for i in range(a, b)]

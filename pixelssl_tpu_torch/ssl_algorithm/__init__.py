@@ -54,7 +54,8 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
     them (``parallel.make_mesh``), as the JAX build divides by its mesh;
     with ``--spatial-train N`` each data coordinate of the (W/N x N) grid
     (``parallel.make_mesh_2d``, unless ``mesh`` is given) on 1/(W/N) of
-    them, and each rank on its rows."""
+    them, and each rank on its rows; an algorithm, model or task that does
+    not run so yet (CCT, PSPNet, ``sreg``: ROADMAP A4c-3) is refused."""
     from .. import parallel
     from ..nn import lrer as nnlrer
     from ..nn import optimizer as nnoptimizer

@@ -22,8 +22,13 @@ One step has two parts (JAX ``_step_fn``, ssl_adv.py:123-239):
 D has its own Adam (β 0.9, 0.99, eps 1e-8, no weight decay;
 ``nn.optimizer.Adam``, torch's Adam with a step a CUDA graph can capture)
 and its own poly schedule, ``discriminator_lr * (1 - k / max_iters) ** power`` on its
-update count k (ssl_adv.py:93-113); its lr scales with the device count,
-which is 1 here.
+update count k (ssl_adv.py:93-113); its lr scales with the ranks of the
+data axis (``ctx.n_dev``).
+
+Under ``--spatial-train`` D runs row-sharded on the rank's rows of the
+prediction and the one-hot GT (``models/discriminator.py``), its BCE a
+share, and the masks of the ignore pixels come from the rank's rows of the
+GT.
 """
 
 import torch
@@ -33,7 +38,7 @@ from ..nn.func import split_tensor_tuple
 from ..nn.optimizer import Adam
 from ..utils import cmd, logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import SSLBase, TaskContext, save_gray_map
+from .ssl_base import SSLBase, TaskContext, _first, save_gray_map
 
 
 def add_parser_arguments(parser):
@@ -178,10 +183,12 @@ class SSLADV(SSLBase):
     def _debug_visualize(self, batch, out_path):
         """D's confidence maps of the first labeled and the first unlabeled
         sample of this rank's batch (JAX ssl_adv.py:249-270, reference
-        ssl_adv.py:393-408)."""
+        ssl_adv.py:393-408); under ``--spatial-train`` through the
+        row-sharded D, the rows gathered."""
         act = self.model(tuple(batch['inp']))['activated_pred'][0]
         cmap = torch.sigmoid(self.d_model(act).float())
-        save_gray_map(cmap[:1], out_path + '_labeled-cmap.png')
+        self._write(save_gray_map, _first((cmap,))[0],
+                    out_path + '_labeled-cmap.png')
         if (self.ctx.ubs or 0) > 0:
-            u0 = self.ctx.lbs
-            save_gray_map(cmap[u0:u0 + 1], out_path + '_unlabeled-cmap.png')
+            self._write(save_gray_map, _first((cmap[self.ctx.lbs:],))[0],
+                        out_path + '_unlabeled-cmap.png')

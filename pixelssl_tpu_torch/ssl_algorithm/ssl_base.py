@@ -42,10 +42,13 @@ over the spatial group is the sample's loss; ``_global_mean`` counts the
 samples over the data axis only; gradients and BN statistics sum over every
 rank; each per-step draw is one draw at the global batch's shape from the
 seed one process uses, of which the rank keeps its samples and rows
-(``_global_draw``). One step over any grid is then the step one process
-takes on the global batch. ``validate`` scores whole samples, a data rank
-each, or (``--spatial-val``, a loader with ``spatial_mesh``) the rows of
-one sample on every rank.
+(``_global_draw``, ``_global_samples``). One step over any grid is then the
+step one process takes on the global batch. ``validate`` scores whole
+samples, a data rank each, or (``--spatial-val``, a loader with
+``spatial_mesh``) the rows of one sample on every rank. ``--visualize``
+runs on every rank of rank 0's spatial group (its eval forward exchanges
+rows): the first sample's rows are gathered (``_first``) and rank 0 writes
+them.
 """
 
 import contextlib
@@ -488,17 +491,25 @@ class SSLBase(object):
         if not self.mesh.spatial:
             return draw(x.shape)
         rows = spatial.active()
-        n = self.mesh.data_size
-        lbs, ubs = self.ctx.lbs * n, (self.ctx.ubs or 0) * n
-        full = draw((lbs + ubs, x.shape[1], rows.height, x.shape[3]))
+        full = self._global_samples(lambda n: draw(
+            (n, x.shape[1], rows.height, x.shape[3])))
         r0, r1 = spatial.local_rows(rows.height, self.mesh)
-        blocks = [full[a:b] for a, b in spatial.local_samples(
-            lbs, ubs, self.mesh) if b > a]
-        return torch.cat(blocks)[:, :, r0:r1]
+        return full[:, :, r0:r1]
 
-    def _pmean(self, value):
-        """``value`` (no gradient) averaged over the ranks."""
-        return parallel.pmean_if_parallel(value, self.mesh)
+    def _global_samples(self, draw):
+        """``draw(n)``, a draw of ``n`` samples, at the global batch's
+        ``n`` under ``--spatial-train``, of which this rank keeps the
+        samples of its data coordinate (``spatial.local_samples``);
+        ``draw(this rank's n)`` otherwise."""
+        lbs, ubs = self.ctx.lbs, self.ctx.ubs or 0
+        if not self.mesh.spatial:
+            return draw(lbs + ubs)
+        n = self.mesh.data_size
+        full = draw((lbs + ubs) * n)
+        blocks = [full[a:b] for a, b in spatial.local_samples(
+            lbs * n, ubs * n, self.mesh, spatial.pairs_unlabeled(self.args))
+            if b > a]
+        return torch.cat(blocks)
 
     def _apply_updates(self, optimizer, loss, params):
         """Gradient of ``loss`` for ``params`` only, summed over the ranks
@@ -589,11 +600,14 @@ class SSLBase(object):
     def _visual_due(self, idx, steps=1):
         """Whether the iterations up to ``idx`` (the last ``steps`` of
         them) reach a multiple of ``--visual-freq``, with ``--visualize``
-        and its train folder set, on rank 0 (which alone writes them)."""
+        and its train folder set, on rank 0 (which alone writes them) and,
+        under ``--spatial-train``, the other ranks of its spatial group,
+        whose rows its eval forward exchanges."""
         args = self.args
         return (bool(getattr(args, 'visualize', False)) and
                 bool(getattr(args, 'visual_train_path', '')) and
-                self.mesh.rank == 0 and
+                (self.mesh.data_rank if self.mesh.spatial else
+                 self.mesh.rank) == 0 and
                 idx % max(1, args.visual_freq) < steps)
 
     @contextlib.contextmanager
@@ -614,23 +628,31 @@ class SSLBase(object):
         ``--visual-train-path``/``name``: the eval forward of ``_eval_fn``
         (every model: input, prediction, GT) and ``_debug_visualize`` (JAX
         ssl_base.py:246-264). It runs eagerly, outside any CUDA graph, and
-        reads the maps to the host."""
+        reads the maps to the host. Under ``--spatial-train`` it runs
+        row-sharded on every rank of rank 0's spatial group, which gathers
+        the sample's rows (``_first``) for rank 0 to write."""
         task_func = self.ctx.task_func
         out = os.path.join(self.args.visual_train_path, name)
         batch = task_func.device_prep(batch)
-        with self._evaluating():
+        with self._evaluating(), self._step_context(batch):
             for model_id, (activated_pred, _) in self._eval_fn(batch).items():
-                task_func.visualize(out, id_str=model_id,
-                                    inp=_first(batch['inp']),
-                                    pred=_first(activated_pred),
-                                    gt=_first(batch['gt']))
+                self._write(task_func.visualize, out, id_str=model_id,
+                            inp=_first(batch['inp']),
+                            pred=_first(activated_pred),
+                            gt=_first(batch['gt']))
             self._debug_visualize(batch, out)
+
+    def _write(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, a PNG writer, on rank 0 only."""
+        if self.mesh.rank == 0:
+            fn(*args, **kwargs)
 
     def _debug_visualize(self, batch, out_path):
         """Maps of the algorithm's own beside the input, prediction and GT
         PNGs (JAX ssl_base.py:152; AdvSSL's confidence maps, GCT's
-        flawmaps and pseudo-GT). Runs in eval mode without gradient.
-        Base: nothing."""
+        flawmaps and pseudo-GT), written through ``_write`` from the first
+        sample's whole rows (``_first``). Runs in eval mode without
+        gradient, inside the step's spatial context. Base: nothing."""
 
     def _step_done(self, epoch, done, n_batches, metrics, timer, steps, due):
         """``steps`` steps queued, ``done`` of the epoch. When ``due``, the
@@ -689,7 +711,9 @@ class SSLBase(object):
         shares and the confusion matrices are summed over the ranks, and
         the sample counts once. ``--visualize``: rank 0 writes the
         PNGs of its batch's first sample every ``--visual-freq``
-        batches."""
+        batches; under ``--spatial-val`` every rank sends its rows of the
+        sample to rank 0 first (``_first``: the padded sample, as the JAX
+        package writes it)."""
         self.meters = AvgMeterSet()  # no stale training keys
         task_func = self.ctx.task_func
         args = self.args
@@ -705,19 +729,24 @@ class SSLBase(object):
         counts = rows_mesh is None or rows_mesh.spatial_rank == 0
         visual = (bool(getattr(args, 'visualize', False)) and
                   bool(getattr(args, 'visual_val_path', '')) and
-                  self.mesh.rank == 0)
+                  (self.mesh.rank == 0 or rows_mesh is not None))
         with self._evaluating():
             for idx, batch in enumerate(data_loader):
                 batch = task_func.device_prep(batch)
                 valid = batch.get('valid')
-                out = None
-                if visual and idx % max(1, args.visual_freq) == 0:
-                    out = os.path.join(args.visual_val_path,
-                                       '{0}_{1}'.format(epoch, idx))
                 with (spatial.sharded(rows_mesh, batch['height'])
                       if rows_mesh is not None else
                       contextlib.nullcontext()):
                     scored = self._eval_fn(batch)
+                    if visual and idx % max(1, args.visual_freq) == 0:
+                        out = os.path.join(args.visual_val_path,
+                                           '{0}_{1}'.format(epoch, idx))
+                        for model_id, (activated_pred, _) in scored.items():
+                            self._write(task_func.visualize, out,
+                                        id_str=model_id,
+                                        inp=_first(batch['inp']),
+                                        pred=_first(activated_pred),
+                                        gt=_first(batch['gt']))
                 for model_id, (activated_pred, loss_vec) in scored.items():
                     if valid is not None:
                         v = valid.to(loss_vec)
@@ -734,11 +763,6 @@ class SSLBase(object):
                     task_func.metrics(activated_pred, batch['gt'],
                                       batch['inp'], self.meters,
                                       id_str=model_id, reduce=reduce)
-                    if out is not None:
-                        task_func.visualize(out, id_str=model_id,
-                                            inp=_first(batch['inp']),
-                                            pred=_first(activated_pred),
-                                            gt=_first(batch['gt']))
 
         results = {key: meter.avg for key, meter in self.meters.items()
                    if METRIC_STR in key}
@@ -825,9 +849,15 @@ class SSLBase(object):
         return int(ckpt['epoch'])
 
 
-def _first(tensors):
-    """The first sample of each tensor of a tuple."""
-    return tuple(t[:1] for t in tensors)
+def _first(tensors, h_dim=None):
+    """The first sample of each tensor of a tuple; inside a spatial
+    context its whole map on spatial rank 0, which writes it, every rank's
+    rows of it fetched along ``h_dim`` (by default the second-to-last axis:
+    NCHW maps, [N,H,W] labels; ``spatial.whole_rows``), and no rows on the
+    other ranks."""
+    return tuple(spatial.whole_rows(
+        t[:1], t.dim() - 2 if h_dim is None else h_dim, to=0)
+        for t in tensors)
 
 
 def save_gray_map(arr, path):

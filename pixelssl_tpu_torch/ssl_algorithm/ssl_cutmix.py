@@ -20,6 +20,14 @@ pixelssl/ssl_algorithm/ssl_cutmix.py).
 * the student runs two forwards, the labeled rows first and the mixed rows
   second, its BN statistics moving with each in turn (ssl_cutmix.py:151-166);
 * the unlabeled batch must be even and at least 2 (ssl_cutmix.py:82-85).
+
+Under ``--spatial-train`` (``parallel.spatial``) sample i pairs with sample
+i + U/2 of the global unlabeled block, as in the JAX package's GSPMD step:
+each data coordinate holds its share of each half (``spatial.PAIRED``),
+the box masks are one draw at the global pairs and (H, W) of which the
+rank keeps its pairs and rows, the MSE is the rank's share
+(``spatial.sample_mean``) and the confidence the pixel mean over the grid
+(``spatial.pixel_mean``).
 """
 
 import copy
@@ -28,6 +36,7 @@ import torch
 
 from ..nn.func import split_tensor_tuple
 from ..ops.boxmask import box_masks
+from ..parallel import spatial
 from ..utils import cmd, logger
 from ..utils.constant import CLASSIFICATION
 from .ssl_base import (SSLBase, TaskContext, forward_with_float32_params,
@@ -108,6 +117,18 @@ class SSLCUTMIX(SSLBase):
         return box_masks(self._step_rng(self.state.step), n, shape,
                          self.args.mask_prop_range)
 
+    def _pair_masks(self, half, x):
+        """The masks of this rank's ``half`` pairs of ``x`` (its unlabeled
+        rows): under ``--spatial-train`` those of its data coordinate and
+        its rows, of one draw at the global pairs and (H, W)."""
+        if not self.mesh.spatial:
+            return self._draw_masks(half, tuple(x.shape[2:]))
+        h = spatial.active().height
+        d = self.mesh.data_rank
+        full = self._draw_masks(half * self.mesh.data_size, (h, x.shape[3]))
+        r0, r1 = spatial.local_rows(h, self.mesh)
+        return full[d * half:(d + 1) * half, :, r0:r1]
+
     def _step_fn(self, batch):
         args = self.args
         ctx = self.ctx
@@ -120,7 +141,7 @@ class SSLCUTMIX(SSLBase):
         if ubs > 0:
             u_inp = split_tensor_tuple(inp, lbs, lbs + ubs)
             half = ubs // 2
-            mask = self._draw_masks(half, tuple(u_inp[0].shape[2:]))
+            mask = self._pair_masks(half, u_inp[0])
 
             def mix(x):
                 return mask * x[:half] + (1.0 - mask) * x[half:]
@@ -130,8 +151,8 @@ class SSLCUTMIX(SSLBase):
             with torch.no_grad():
                 u_t_act = self._teacher_forward(u_inp)['activated_pred']
                 mix_t_act = [mix(a) for a in u_t_act]
-                confidences = [self._pmean(
-                    (a.amax(dim=1) > args.cons_threshold).float().mean())
+                confidences = [spatial.pixel_mean(
+                    a.amax(dim=1) > args.cons_threshold, self.mesh)
                     for a in mix_t_act]
 
         # the labeled rows first, then the mixed rows: two forwards whose
@@ -143,9 +164,8 @@ class SSLCUTMIX(SSLBase):
         if ubs > 0:
             mix_s_act = self.model(mix_u_inp)['activated_pred']
             for s_act, t_act, conf in zip(mix_s_act, mix_t_act, confidences):
-                mse = self._global_mean(torch.square(
-                    s_act.float() - t_act.float()).mean(
-                        dim=tuple(range(1, s_act.dim()))))
+                mse = self._global_mean(spatial.sample_mean(torch.square(
+                    s_act.float() - t_act.float())))
                 cons_loss = cons_loss + mse * conf
             cons_loss = self._rampup(args.cons_rampup_epochs,
                                      args.cons_scale) * cons_loss

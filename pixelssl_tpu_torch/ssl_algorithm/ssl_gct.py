@@ -29,7 +29,8 @@ and six more a step that ``--visualize`` dumps (``_debug_visualize``).
 
 Under ``--spatial-train`` (``parallel.spatial``) a map holds this rank's
 rows: the blur's k comes from the global height, each blur runs on the
-rank's strip of rows (still six launches a step), the min-max
+rank's strip of rows (still six launches a step, and six more a
+visualized step on each rank of rank 0's spatial group), the min-max
 normalisations take each sample's extrema over every rank of the spatial
 group, the 3x3 dilation fetches a row above and below (reflected at the
 map's edges only), and the fc, dc and FD losses are shares.
@@ -46,7 +47,7 @@ from ..ops.blur import gaussian_blur_fused as _blur
 from ..parallel import spatial
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
-from .ssl_base import SSLBase, TaskContext, save_gray_map
+from .ssl_base import SSLBase, TaskContext, _first, save_gray_map
 
 MODE_GCT = 'gct'
 MODE_FC = 'fc'
@@ -326,10 +327,11 @@ class SSLGCT(SSLBase):
         task models (JAX ssl_gct.py:423-468, reference ssl_gct.py:486-499),
         every module in eval mode: ``flawmap_handler`` and
         ``fdgt_generator`` on the whole batch (the step's FDGT sees the
-        labeled part only), six blur launches."""
+        labeled part only), six blur launches; under ``--spatial-train``
+        on each rank's strip of rows, then gathered."""
         args = self.args
         inp, gt = tuple(batch['inp']), tuple(batch['gt'])
-        im_size = inp[0].shape[2]
+        im_size = spatial.global_height(inp[0])
         gt_enc = self.ctx.task_func.sslgct_prepare_task_gt_for_fdgt(gt[0])
         maps, acts = {}, {}
         for mid, model in (('l', self.l_model), ('r', self.r_model)):
@@ -343,14 +345,17 @@ class SSLGCT(SSLBase):
             maps['l_dc_gt'], maps['r_dc_gt'], _, _ = dcgt_generator(
                 acts['l'], acts['r'], maps['l_fmap'], maps['r_fmap'],
                 args.dc_threshold)
+        # the first sample's whole NHWC maps (rows gathered under
+        # --spatial-train)
+        maps = {k: _first((v,), h_dim=1)[0] for k, v in maps.items()}
         for mid in ('l', 'r'):
-            save_gray_map(maps[mid + '_fmap'][:1],
-                          out_path + '_{0}-fmap.png'.format(mid))
-            save_gray_map(maps[mid + '_fmap_gt'][:1],
-                          out_path + '_{0}-fmap-gt.png'.format(mid))
+            self._write(save_gray_map, maps[mid + '_fmap'],
+                        out_path + '_{0}-fmap.png'.format(mid))
+            self._write(save_gray_map, maps[mid + '_fmap_gt'],
+                        out_path + '_{0}-fmap-gt.png'.format(mid))
             if mid + '_dc_gt' in maps:
-                self.ctx.task_func.visualize_pseudo_gt(
-                    maps[mid + '_dc_gt'][:1], out_path, id_str=mid)
+                self._write(self.ctx.task_func.visualize_pseudo_gt,
+                            maps[mid + '_dc_gt'], out_path, id_str=mid)
 
     def _eval_fn(self, batch):
         """Both task models, ids ``l`` and ``r`` (JAX ssl_gct.py:410-421)."""

@@ -19,6 +19,15 @@ pixelssl/ssl_algorithm/ssl_s4l.py).
   doubled batch; ``rotation_acc`` in percent (ssl_s4l.py:139-173).
 
 Crops must be square: a rotation by 90 degrees swaps H and W.
+
+Under ``--spatial-train`` (``parallel.spatial``) a rotation by 90 or 270
+degrees makes columns of the rank's rows: each rank gathers the whole input
+and GT maps of its samples (``spatial.whole_rows``, no gradient: 3 channels
+and 1), rotates them and keeps its rows. The angles are one draw at the
+global batch (``_global_samples``). The rotation logits come out whole on
+every rank of a spatial group (``RotationClassifier``), so the rotation
+cross-entropy and accuracy count on spatial rank 0 only
+(``spatial.whole_share``).
 """
 
 import torch
@@ -27,6 +36,7 @@ import torch.nn.functional as F
 
 from ..models.rotation import RotationClassifier
 from ..nn.func import split_tensor_tuple
+from ..parallel import spatial
 from ..task_template.model import group_by_lr_rule
 from ..utils import logger
 from ..utils.constant import REGRESSION, CLASSIFICATION
@@ -90,6 +100,20 @@ def rotate_batch(x, angles, dims):
     return stacked[angles, torch.arange(x.shape[0], device=x.device)]
 
 
+def rotate_rows(x, angles, h_dim):
+    """``rotate_batch`` of ``x`` over axes (``h_dim``, ``h_dim`` + 1). Inside
+    a spatial context ``x`` holds this rank's rows of square maps: their
+    whole maps are gathered (``spatial.whole_rows``) and rotated, and this
+    rank's rows of the result are kept."""
+    out = rotate_batch(spatial.whole_rows(x, h_dim), angles,
+                       (h_dim, h_dim + 1))
+    rows = spatial.active()
+    if rows is None:
+        return out
+    r0, r1 = spatial.local_rows(rows.height, rows.mesh)
+    return out.narrow(h_dim, r0, r1 - r0)
+
+
 class SSLS4L(SSLBase):
     NAME = 'ssl_s4l'
     # the rotation pretext is task-agnostic: the dense GT rotates with the
@@ -129,12 +153,10 @@ class SSLS4L(SSLBase):
 
     def _double_batch(self, inp, gt):
         """[originals ++ rotated] inputs and GT, and the rotation GT."""
-        bs = inp[0].shape[0]
-        angles = self._draw_angles(bs)
-        new_inp = tuple(torch.cat([i, rotate_batch(i, angles, (2, 3))])
+        angles = self._global_samples(self._draw_angles)
+        new_inp = tuple(torch.cat([i, rotate_rows(i, angles, 2)])
                         for i in inp)
-        new_gt = tuple(torch.cat([g, rotate_batch(g, angles, (g.dim() - 2,
-                                                              g.dim() - 1))])
+        new_gt = tuple(torch.cat([g, rotate_rows(g, angles, g.dim() - 2)])
                        for g in gt)
         rotation_gt = torch.cat([torch.zeros_like(angles), angles])
         return new_inp, new_gt, rotation_gt
@@ -157,10 +179,11 @@ class SSLS4L(SSLBase):
             split_tensor_tuple(gt, bs, bs + lbs),
             split_tensor_tuple(inp, bs, bs + lbs)))
         rotation_loss = args.rotation_scale * self._global_mean(
-            F.cross_entropy(pred_rotation, rotation_gt, reduction='none'))
+            spatial.whole_share(F.cross_entropy(pred_rotation, rotation_gt,
+                                                reduction='none')))
         with torch.no_grad():
-            rotation_acc = self._global_mean(
-                (pred_rotation.argmax(dim=1) == rotation_gt).float()) * 100.0
+            rotation_acc = self._global_mean(spatial.whole_share(
+                (pred_rotation.argmax(dim=1) == rotation_gt).float())) * 100.0
 
         lr = self._set_lr(self.opt, self.lr_schedule)
         self._apply_updates(self.opt, unrot + rot + rotation_loss,

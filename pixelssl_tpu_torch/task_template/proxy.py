@@ -27,10 +27,11 @@ its data coordinate and keeps its rows of them on the host before the
 copy, and validation scores whole samples in batches of the data axis.
 ``--spatial-val`` validates one sample at a time, padded to the bucket and
 its H to a multiple of the ranks, its rows over every rank
-(``_ValLoader``). Both take SupOnly, MT and GCT on DeepLab-v2 for now;
-another algorithm, model or task, or ``--visualize``, stops with the
-ROADMAP item that brings it (``parallel.spatial.unsupported``: A4c-2,
-A4c-3), as do the two flags together. ``--steps-per-dispatch``
+(``_ValLoader``). Both take SupOnly, MT, AdvSSL, S4L, GCT and CutMix on
+DeepLab-v2, with ``--visualize`` (rank 0 writes the PNGs of the rows its
+spatial group gathers); CCT, PSPNet and the ``sreg`` task stop with the
+ROADMAP item that brings them (``parallel.spatial.unsupported``: A4c-3),
+as do the two flags together. ``--steps-per-dispatch``
 shapes the algorithm's loop (``SSLBase.train``: chunks of a dispatch),
 ``--eager-ingest`` the train loader (``nn.loader``: the copy on a side
 stream); ``--profile-dir`` and ``--profile-steps`` the loop's profiler
@@ -163,8 +164,8 @@ class TaskProxy(object):
 
     def _check_spatial(self, args):
         """The refusals of ``--spatial-train`` and ``--spatial-val`` (JAX
-        proxy.py:160-174, and what the port does not run yet), before the
-        process group forms."""
+        proxy.py:160-174, and what the port does not run yet: A4c-3's
+        CCT, PSPNet and ``sreg``), before the process group forms."""
         if args.spatial_train > 1 or args.spatial_val:
             why = parallel.spatial.unsupported(args, self.NAME)
             if why is not None:
@@ -349,7 +350,14 @@ class TaskProxy(object):
                         args.labeled_batch_size, args.unlabeled_batch_size,
                         seed=args.seed)
                     lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size
-                if self.mesh.world_size > 1:
+                if self.mesh.spatial:
+                    # the samples of its data coordinate, the halves of
+                    # the unlabeled block dealt alike where the algorithm
+                    # pairs them (parallel/spatial.py)
+                    sampler = parallel.spatial.GridSampler(
+                        sampler, lbs, ubs, self.mesh,
+                        parallel.spatial.pairs_unlabeled(args))
+                elif self.mesh.world_size > 1:
                     # every rank walks the same seeded global sequence and
                     # loads only its own slice (parallel/multihost.py): the
                     # samples of its data coordinate

@@ -24,11 +24,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from pixelssl_tpu_torch import harness, parallel  # noqa: E402
 from pixelssl_tpu_torch.models import layers  # noqa: E402
 from pixelssl_tpu_torch.models.deeplab_v2 import DeepLabV2  # noqa: E402
+from pixelssl_tpu_torch.models.discriminator import (  # noqa: E402
+    FCDiscriminator)
 from pixelssl_tpu_torch.models.flaw_detector import (  # noqa: E402
     FlawDetector, IBNorm)
+from pixelssl_tpu_torch.models.rotation import (  # noqa: E402
+    RotationClassifier)
 from pixelssl_tpu_torch.ops import blur  # noqa: E402
 from pixelssl_tpu_torch.parallel import spatial  # noqa: E402
-from pixelssl_tpu_torch.ssl_algorithm import ssl_gct  # noqa: E402
+from pixelssl_tpu_torch.ssl_algorithm import ssl_base  # noqa: E402
+from pixelssl_tpu_torch.ssl_algorithm import ssl_gct, ssl_s4l  # noqa: E402
 
 N, C, W = 2, 3, 10
 
@@ -53,14 +58,26 @@ LAYER_KINDS = {
     'dilate3x3': ('dilate', {}),
 }
 # cases at heights of their own
-LAYER_KINDS_ELSEWHERE = {'flaw_detector': ('fd', {})}
+LAYER_KINDS_ELSEWHERE = {'flaw_detector': ('fd', {}),
+                         'discriminator': ('d', {}),
+                         'rotation_head': ('rc', {}),
+                         'whole_rows': ('whole', {}),
+                         'rotate': ('rotate', {})}
 LAYER_HEIGHTS = (33, 65)
 # the dilation 24 of ASPP on the 21-row map of OS 16 at 321 px; the flaw
 # detector's classifier on a 3-row map, whose one output row leaves rank 1
 # none; the whole flaw detector, whose classifier gives one row at 64 and
-# 65 px
+# 65 px; AdvSSL's discriminator, whose 4x4/2 chain runs 33 -> 1 row (rank 1
+# none) and 65 -> 2 before its resize back (at 21 rows its classifier's
+# window outgrows the padded 1-row map, in one process too); S4L's
+# rotation head (its
+# logits whole on every rank); the gather of a whole map; the rotation of
+# a row-sharded square map by 90 and 270 degrees
 EXTRA_LAYER_CASES = (('conv3_d24', 21), ('fd_conv4_s2', 3),
-                     ('flaw_detector', 64), ('flaw_detector', 65))
+                     ('flaw_detector', 64), ('flaw_detector', 65),
+                     ('discriminator', 33), ('discriminator', 65),
+                     ('rotation_head', 33), ('whole_rows', 33),
+                     ('rotate', 33))
 
 
 def layer_cases():
@@ -74,7 +91,8 @@ def _rng(name, h):
 
 def layer_case(name, h):
     """(module or None, fn(x, h) -> out, the global input, the axis of H,
-    the global output height) of a case; the same on every rank."""
+    the global output height, None where every rank gives the whole
+    output) of a case; the same on every rank."""
     what, kw = LAYER_KINDS.get(name) or LAYER_KINDS_ELSEWHERE[name]
     rng = _rng(name, h)
     torch.manual_seed(h)
@@ -85,7 +103,22 @@ def layer_case(name, h):
         fd.init_weights(torch.Generator().manual_seed(h))
         x = rng.standard_normal((N, C, h, 64)).astype(np.float32)
         return fd, (lambda x, hh: fd((x[:, :1],), x[:, 1:])), x, 2, h
+    if what in ('d', 'rc'):
+        # D (ndf 8) on 40 columns, the rotation head on 16
+        module = FCDiscriminator(C, ndf=8) if what == 'd' else \
+            RotationClassifier(C)
+        module.init_weights(torch.Generator().manual_seed(h))
+        x = rng.standard_normal((N, C, h, 40 if what == 'd' else 16))
+        return module, (lambda x, hh: module(x)), x.astype(np.float32), 2, \
+            h if what == 'd' else None
     nchw = rng.standard_normal((N, C, h, W)).astype(np.float32)
+    if what == 'whole':
+        return None, (lambda x, hh: spatial.whole_rows(x, 2)), nchw, 2, None
+    if what == 'rotate':
+        square = rng.standard_normal((N, C, h, h)).astype(np.float32)
+        angles = torch.tensor([1, 3])
+        return None, (lambda x, hh: ssl_s4l.rotate_rows(x, angles, 2)), \
+            square, 2, h
     if what == 'conv':
         conv = layers.Conv2d(C, 4, kw['k'], stride=kw['s'], padding=kw['p'],
                              dilation=kw['d'], bias=True)
@@ -125,9 +158,10 @@ def layer_case(name, h):
 
 def run_layer(name, h, mesh=None):
     """The case's output, input gradient and parameter gradients (of the
-    sum of the output times a fixed random map) and buffers: of the whole
-    map without ``mesh``, of this rank's rows with it (the parameter
-    gradients this rank's part of them)."""
+    sum of the output times a fixed random map, a share on spatial rank 0
+    only where every rank gives the whole output: ``spatial.whole_share``)
+    and buffers: of the whole map without ``mesh``, of this rank's rows
+    with it (the parameter gradients this rank's part of them)."""
     module, fn, x_full, h_dim, h_out = layer_case(name, h)
     x = torch.from_numpy(x_full)
     if module is not None:
@@ -144,21 +178,26 @@ def run_layer(name, h, mesh=None):
     x = x.clone().requires_grad_(True)
     with context:
         out = fn(x, h)
-    shape = list(out.shape)
-    shape[h_dim] = h_out
-    # gradients about 1 whatever the map's size
-    weight = torch.from_numpy((_rng(name + 'w', h).standard_normal(
-        shape) / np.sqrt(np.prod(shape))).astype(np.float32))
-    if mesh is not None:
-        lo, hi = spatial.local_rows(h_out, mesh)
-        weight = weight.narrow(h_dim, lo, hi - lo)
-    (out * weight).sum().backward()
+        shape = list(out.shape)
+        if h_out is not None:
+            shape[h_dim] = h_out
+        # gradients about 1 whatever the map's size
+        weight = torch.from_numpy((_rng(name + 'w', h).standard_normal(
+            shape) / np.sqrt(np.prod(shape))).astype(np.float32))
+        if mesh is not None and h_out is not None:
+            lo, hi = spatial.local_rows(h_out, mesh)
+            weight = weight.narrow(h_dim, lo, hi - lo)
+        loss = (out * weight).sum()
+        if h_out is None:
+            loss = spatial.whole_share(loss)
+    loss.backward()
     params = {} if module is None else {
         k: p.grad.detach().clone() for k, p in module.named_parameters()}
     buffers = {} if module is None else {
         k: b.detach().clone() for k, b in module.named_buffers()}
     return {'out': out.detach(), 'grad': x.grad.detach(), 'params': params,
-            'buffers': buffers, 'h_dim': h_dim}
+            'buffers': buffers, 'h_dim': h_dim,
+            'out_dim': None if h_out is None else h_dim}
 
 
 def model_input(h, w, seed=0):
@@ -212,7 +251,8 @@ def run_steps(job, rank):
             algo.modules[key].load_state_dict(state)
         (img, gt), height = spatial.shard_train_batch(
             (run['images'], run['labels']), args.labeled_batch_size,
-            args.unlabeled_batch_size, algo.mesh)
+            args.unlabeled_batch_size, algo.mesh,
+            spatial.pairs_unlabeled(args))
         batch = dict(harness._to_batch(img, gt, 'cpu'), height=height)
         metrics, blurs = [], []
         for _ in range(job['steps']):
@@ -231,17 +271,49 @@ def run_steps(job, rank):
     return results
 
 
+def counting_visual_blurs():
+    """Count the blur calls of each train-side visualization
+    (``SSLBase._visualize``): returns the list that each visualization
+    appends its calls' (input shape, k) to, and a function that undoes the
+    counting."""
+    visual, calls = [], []
+    local, visualize = blur._blur_local, ssl_base.SSLBase._visualize
+
+    def counted(x, kernel_size):
+        calls.append((tuple(x.shape), int(kernel_size)))
+        return local(x, kernel_size)
+
+    def visualized(self, batch, name):
+        del calls[:]
+        visualize(self, batch, name)
+        visual.append(list(calls))
+
+    blur._blur_local = counted
+    ssl_base.SSLBase._visualize = visualized
+
+    def undo():
+        blur._blur_local = local
+        ssl_base.SSLBase._visualize = visualize
+    return visual, undo
+
+
 def run_script(job, rank):
     """``run_script`` of ``job['config']`` from the environment ``torchrun``
-    would set; this rank's view of the run."""
+    would set; this rank's view of the run, with the blur calls of each
+    train-side visualization."""
     import pixelssl_tpu_torch
     from pixelssl_tpu_torch.tasks import sseg
 
-    proxy = pixelssl_tpu_torch.run_script(
-        dict(job['config']), sseg, sseg.SemanticSegmentationProxy,
-        device='cpu', cli_override=False)
+    visual, undo = counting_visual_blurs()
+    try:
+        proxy = pixelssl_tpu_torch.run_script(
+            dict(job['config']), sseg, sseg.SemanticSegmentationProxy,
+            device='cpu', cli_override=False)
+    finally:
+        undo()
     algo = proxy.ssl_algorithm
     return {'step': algo.state.step, 'batch_size': proxy.args.batch_size,
+            'visual_blurs': visual,
             'lbs': algo.ctx.lbs, 'ubs': algo.ctx.ubs,
             'n_devices': proxy.args.n_devices, 'lr': proxy.args.lr,
             'val_len': len(proxy.val_loader),

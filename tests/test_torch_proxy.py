@@ -229,14 +229,14 @@ def test_proxy_and_harness_build_the_same_algorithm(tmp_path):
 # run them yet (the VOC data flags and datasets, the optimizer flags, the
 # sseg model flags, the single-card tooling flags, --visualize and
 # --distributed are ported and left this table; --spatial-val and
-# --spatial-train run SupOnly, MT and GCT on DeepLab-v2, and stop on what
-# ROADMAP A4c-2 and A4c-3 bring: here PSPNet and AdvSSL,
+# --spatial-train run SupOnly, MT, AdvSSL, S4L, GCT and CutMix on
+# DeepLab-v2, and stop on what ROADMAP A4c-3 brings: here PSPNet and CCT,
 # tests/test_torch_spatial.py has every refusal)
 UNPORTED = [
     ('spatial_val', True, 'A4c'), ('spatial_train', 2, 'A4c'),
 ]
 UNPORTED_WITH = {'spatial_val': dict(models={'model': 'pspnet'}),
-                 'spatial_train': dict(ssl_algorithm='ssl_adv',
+                 'spatial_train': dict(ssl_algorithm='ssl_cct',
                                        distributed=True)}
 
 

@@ -12,9 +12,13 @@ split by ``row_range``, uneven at the odd heights used here.
   halo, the strided 1x1, the 7x7 stem, the flaw detector's 4x4 at stride 2
   and 1), the 3x3/2 max pool, the align-corners resize up and down,
   ``SyncBatchNorm`` and ``IBNorm`` in training, the blur's strip path at
-  k = 5, 21 and 81 (> H) and GCT's 3x3 dilation: output, input gradient,
-  parameter gradients summed over the ranks and BN statistics, atol and
-  rtol 1e-5 (the loss map scaled so that gradients are about 1).
+  k = 5, 21 and 81 (> H), GCT's 3x3 dilation, AdvSSL's discriminator (its
+  4x4/2 chain and the resize back, at 33 and 65 rows), S4L's rotation head
+  (convolutions, BN and the spatial group's channel mean), the gather of a
+  whole map and the rotation of a row-sharded square map: output, input
+  gradient, parameter gradients summed over the ranks and BN statistics,
+  atol and rtol 1e-5 (the loss map scaled so that gradients are about
+  1).
 * DeepLab-v2 / ResNet-10 in eval mode over two ranks: equal to one process
   (atol 1e-5) at 65 and 64 rows, and at 64 to the JAX package's
   ``spatial_forward`` on a 2-device mesh (``tests/test_spatial.py``'s
@@ -22,12 +26,15 @@ split by ``row_range``, uneven at the odd heights used here.
 * Two train steps from the JAX package's initial weights (``from_jax``)
   under ``--spatial-train 2`` on two ranks: SupOnly at 33 px, MT at 33 px
   with its Gaussian input noise on, GCT at 96 px (``tests/test_torch_
-  parallel.py`` says why 96); SupOnly at 33 px on a 2 data x 2 spatial grid
-  of four ranks. Each equals the port in one process on the global batch
-  with ``tests/test_torch_parallel.py``'s limits (losses rtol 1e-4 atol
-  1e-5, MT's ``cons_loss`` and GCT's thresholded fc/dc rtol 2e-2,
-  parameters and BN statistics atol 1e-5 rtol 1e-4, the flaw detector's
-  atol ``FD_ATOL``). SupOnly at 32 px also equals the JAX package's step on
+  parallel.py`` says why 96), AdvSSL at 33 px with ``--adv-for-labeled``,
+  S4L at 33 px, CutMix at 33 px with 4 unlabeled samples; SupOnly and
+  CutMix (its pairs those of the global unlabeled block) at 33 px on a 2
+  data x 2 spatial grid of four ranks. Each equals the port in one process
+  on the global batch with ``tests/test_torch_parallel.py``'s limits
+  (losses rtol 1e-4 atol 1e-5, the consistencies and GCT's thresholded
+  fc/dc rtol 2e-2, parameters and BN statistics atol 1e-5 rtol 1e-4, the
+  Adam-trained flaw detector's and D's atol ``FD_ATOL``). SupOnly and
+  AdvSSL at 32 px also equal the JAX package's step on
   ``make_mesh_2d(2, devices=jax.devices()[:2])`` (rtol 2e-3 on the loss,
   parameters atol 3e-4, statistics atol 1e-4). GCT calls the blur 6 times
   a step on each rank, each on its strip of rows.
@@ -38,10 +45,15 @@ split by ``row_range``, uneven at the odd heights used here.
   scores like one process on the same padded images (rtol 1e-6) and like
   the JAX package's ``--spatial-val`` on a 2-device mesh (losses rtol
   2e-3, scores atol 1e-3, ``tests/test_torch_proxy.py``'s).
-* Every refusal: another algorithm, model or task names ROADMAP A4c-2 or
-  A4c-3, as ``--visualize`` does; the two flags together, an N that does
-  not divide the ranks, and ``--spatial-train`` without ``--distributed``
-  stop as the JAX package stops.
+* ``--visualize``: GCT at 96 px and AdvSSL under ``--distributed
+  --spatial-train 2``, and ``--validation --spatial-val`` on two ranks,
+  write one process's PNG names and sizes, the input and GT byte for
+  byte, the model's maps within ``COLOUR_SAME`` / ``GRAY_LEVELS``; a
+  visualized GCT step blurs 6 times on each rank's strips.
+* Every refusal: CCT, PSPNet and the ``sreg`` task name ROADMAP A4c-3
+  under either flag; the two flags together, an N that does not divide the
+  ranks, and ``--spatial-train`` without ``--distributed`` stop as the JAX
+  package stops.
 * ``pixelssl_tpu_torch/tools/spatial_spread.py`` runs and reports its
   gaps.
 """
@@ -75,6 +87,7 @@ import pixelssl_tpu_torch
 from pixelssl_tpu_torch import harness, parallel
 from pixelssl_tpu_torch.models.convert import from_jax
 from pixelssl_tpu_torch.models.deeplab_v2 import DeepLabV2
+from pixelssl_tpu_torch.nn import imageio
 from pixelssl_tpu_torch.parallel import spatial
 from pixelssl_tpu_torch.tasks import sseg
 from pixelssl_tpu_torch.utils import logger
@@ -293,13 +306,15 @@ def layer_runs(tmp_path_factory):
                               worker.layer_cases()])
 def test_layer_on_two_ranks_matches_one_process(case, layer_runs):
     ref = worker.run_layer(*case)
-    dim = ref['h_dim']
     parts = [r[case] for r in layer_runs['layers']]
-    for key in ('out', 'grad'):
-        got = torch.cat([p[key] for p in parts], dim)
-        np.testing.assert_allclose(got.numpy(), ref[key].numpy(),
-                                   atol=LAYER_TOL, rtol=LAYER_TOL,
-                                   err_msg=key)
+    for key, dim in (('out', ref['out_dim']), ('grad', ref['h_dim'])):
+        # an output every rank gives whole (the rotation head's logits,
+        # a gathered map) equals the reference on each rank
+        for got in ([p[key] for p in parts] if dim is None else
+                    [torch.cat([p[key] for p in parts], dim)]):
+            np.testing.assert_allclose(got.numpy(), ref[key].numpy(),
+                                       atol=LAYER_TOL, rtol=LAYER_TOL,
+                                       err_msg=key)
     for name, value in ref['params'].items():
         got = sum(p['params'][name] for p in parts)
         np.testing.assert_allclose(got.numpy(), value.numpy(),
@@ -327,6 +342,10 @@ def test_deeplab_on_two_ranks_matches_one_process_and_jax(which, layer_runs):
 # train steps
 # ---------------------------------------------------------------------------
 
+ADV_ARGS = dict(batch_size=4, unlabeled_batch_size=2, ignore_unlabeled=False,
+                adv_for_labeled=True, labeled_adv_scale=0.01,
+                unlabeled_adv_scale=0.001, unlabeled_for_discriminator=True)
+CUTMIX_THRESHOLD = 0.35
 STEP_RUNS = {
     'ssl_null': ('ssl_null', 33, dict(batch_size=4, unlabeled_batch_size=0)),
     'ssl_null_jax': ('ssl_null', 32, dict(batch_size=4,
@@ -342,7 +361,26 @@ STEP_RUNS = {
                                     dc_threshold=0.5, dc_rampup_epochs=1,
                                     fd_lr=1e-4, fd_scale=10.0, mu=0.5,
                                     nu=1)),
+    'ssl_adv': ('ssl_adv', 33, ADV_ARGS),
+    'ssl_adv_jax': ('ssl_adv', 32, ADV_ARGS),
+    'ssl_s4l': ('ssl_s4l', 33, dict(batch_size=4, unlabeled_batch_size=2,
+                                    ignore_unlabeled=False,
+                                    rotated_sup_scale=0.1,
+                                    rotation_scale=0.1)),
+    # 4 unlabeled samples: two pairs, one a data coordinate on a 2 x 2 grid;
+    # the threshold leaves the confidence a fraction of the pixels
+    'ssl_cutmix': ('ssl_cutmix', 33, dict(batch_size=6,
+                                          unlabeled_batch_size=4,
+                                          ignore_unlabeled=False,
+                                          cons_scale=20.0,
+                                          cons_rampup_epochs=0,
+                                          cons_threshold=CUTMIX_THRESHOLD,
+                                          mask_prop_range=(0.5, 0.5))),
 }
+# the runs on a 2 data x 2 spatial grid of four ranks
+GRID_RUNS = ('ssl_null', 'ssl_cutmix')
+# the runs against the JAX package's GSPMD step
+JAX_RUNS = ('ssl_null_jax', 'ssl_adv_jax')
 
 
 def _step_args(name):
@@ -423,7 +461,9 @@ def _check_against_one_process(ranks, name, one, final, grid):
                 assert np.isclose(a, v, rtol=ONE_PROCESS_TOLS.get(k, 1e-4),
                                   atol=1e-5), (name, rank, s, k, a, v)
         for key, state in final.items():
-            fd = key == 'fd_model'
+            # the flaw detector and D: Adam, whose first update moves each
+            # weight whose gradient is 0 up to float32 noise by the lr
+            fd = key in ('fd_model', 'd_model')
             _close_states(out['states'][key], state,
                           '{0} {1} rank {2}'.format(name, key, rank),
                           FD_ATOL if fd else PARAM_ATOL.get(name, 1e-5),
@@ -434,12 +474,14 @@ def _check_against_one_process(ranks, name, one, final, grid):
                 assert torch.equal(value, other[name]['states'][key][pname])
 
 
-def _check_against_jax(ranks, run):
-    """SupOnly against the JAX package's GSPMD step on a (1 x 2) mesh of
-    two devices, run as ``tests/test_spatial_train.py`` runs it."""
+def _check_against_jax(ranks, run, name):
+    """The run ``name`` against the JAX package's GSPMD step on a (1 x 2)
+    mesh of two devices, run as ``tests/test_spatial_train.py`` runs it:
+    every module's state (AdvSSL's D too, whose two Adam updates move a
+    weight by at most 2e-4 more where its gradient is float32 noise)."""
     mesh = jax_spatial.make_mesh_2d(2, devices=jax.devices()[:2])
-    jargs = jax_harness.default_args('ssl_null', **dict(run['args'],
-                                                        spatial_train=2))
+    jargs = jax_harness.default_args(run['algorithm'], **dict(
+        run['args'], spatial_train=2))
     jalgo = jax_harness.build_algorithm(jargs, mesh=mesh,
                                         iters_per_epoch=ITERS_PER_EPOCH)
     batch = jax_spatial.shard_train_batch(
@@ -448,16 +490,17 @@ def _check_against_jax(ranks, run):
     for _ in range(STEPS):
         state, metrics = jalgo._train_step(state, batch)
         history.append({k: float(np.asarray(v)) for k, v in metrics.items()})
-    final = from_jax(jax.tree.map(np.asarray, jax.device_get(
-        state))['model'])
+    final = jax.tree.map(np.asarray, jax.device_get(state))
     for rank, result in enumerate(ranks):
-        out = result['ssl_null_jax']
+        out = result[name]
         for s in range(STEPS):
             for k, v in history[s].items():
                 assert np.isclose(out['metrics'][s][k], v, rtol=2e-3,
-                                  atol=1e-6), (rank, s, k)
-        _close_states(out['states']['model'], final, 'jax rank {0}'.format(
-            rank), 3e-4, STATS_TOL, 0.0, counts=False)
+                                  atol=1e-6), (name, rank, s, k)
+        for key in out['states']:
+            _close_states(out['states'][key], from_jax(final[key]),
+                          '{0} {1} jax rank {2}'.format(name, key, rank),
+                          3e-4, STATS_TOL, 0.0, counts=False)
 
 
 def _check_gct_blurs(ranks):
@@ -482,24 +525,26 @@ def _failures(check, *args):
 
 
 def _step_verdicts(root):
-    """The four runs on a 1 x 2 grid and SupOnly on a 2 x 2 grid, each
-    against one process; SupOnly against JAX; GCT's blurs."""
+    """Every run on a 1 x 2 grid and ``GRID_RUNS`` on a 2 x 2 grid, each
+    against one process; ``JAX_RUNS`` against JAX; GCT's blurs."""
     runs, one, final = {}, {}, {}
     for name in STEP_RUNS:
         runs[name], one[name], final[name] = _run(name)
     job = dict(kind='steps', n_spatial=2, runs=runs, steps=STEPS,
                iters_per_epoch=ITERS_PER_EPOCH)
     two = _spawn(job, root / 'two', 2)
-    four = _spawn(dict(job, runs={'ssl_null': runs['ssl_null']}),
+    four = _spawn(dict(job, runs={name: runs[name] for name in GRID_RUNS}),
                   root / 'four', 4)
     verdicts = {'1x2 ' + name: _failures(
         _check_against_one_process, two, name, one[name], final[name],
         (1, 2)) for name in STEP_RUNS}
-    verdicts['2x2 ssl_null'] = _failures(
-        _check_against_one_process, four, 'ssl_null', one['ssl_null'],
-        final['ssl_null'], (2, 2))
-    verdicts['jax'] = _failures(_check_against_jax, two,
-                                runs['ssl_null_jax'])
+    for name in GRID_RUNS:
+        verdicts['2x2 ' + name] = _failures(
+            _check_against_one_process, four, name, one[name], final[name],
+            (2, 2))
+    for name in JAX_RUNS:
+        verdicts['jax ' + name] = _failures(_check_against_jax, two,
+                                            runs[name], name)
     verdicts['gct blurs'] = _failures(_check_gct_blurs, two)
     return verdicts
 
@@ -534,8 +579,23 @@ def test_spatial_train_on_a_2x2_grid_matches_one_process(step_verdicts):
     assert not step_verdicts['2x2 ssl_null'], step_verdicts['2x2 ssl_null']
 
 
+def test_spatial_train_cutmix_on_a_2x2_grid_matches_one_process(
+        step_verdicts):
+    """Each data coordinate holds its share of each half of the
+    unlabeled block, so that its pairs are the global block's (sample i
+    with sample i + U/2), as in one process."""
+    assert not step_verdicts['2x2 ssl_cutmix'], \
+        step_verdicts['2x2 ssl_cutmix']
+
+
 def test_spatial_train_suponly_matches_jax_gspmd(step_verdicts):
-    assert not step_verdicts['jax'], step_verdicts['jax']
+    assert not step_verdicts['jax ssl_null_jax'], \
+        step_verdicts['jax ssl_null_jax']
+
+
+def test_spatial_train_adv_matches_jax_gspmd(step_verdicts):
+    assert not step_verdicts['jax ssl_adv_jax'], \
+        step_verdicts['jax ssl_adv_jax']
 
 
 def test_gct_blurs_six_strips_a_step_on_each_rank(step_verdicts):
@@ -696,18 +756,140 @@ def test_spatial_val_matches_one_process_and_jax(tmp_path):
     shutil.rmtree(str(tmp_path / 'jax'), ignore_errors=True)
 
 
+# ``--visualize`` under the two flags: the algorithm's own keys on top of
+# ``_script_config``; GCT at 96 px (at 64 px and less its flawmap is flat)
+VISUAL_RUNS = {
+    'ssl_gct': dict(ssl_algorithm='ssl_gct', im_size=96, ssl_mode='gct',
+                    fc_ssl_scale=1.0, dc_ssl_scale=1.0, dc_threshold=0.5,
+                    dc_rampup_epochs=1, fd_lr=1e-4, fd_scale=10.0, mu=0.5,
+                    nu=1),
+    'ssl_adv': dict(ssl_algorithm='ssl_adv', adv_for_labeled=True,
+                    labeled_adv_scale=0.01, unlabeled_adv_scale=0.001),
+}
+VISUAL_VAL = dict(ssl_algorithm='ssl_null', unlabeled_batch_size=0,
+                  ignore_unlabeled=True, sublabeled_path='', validation=True,
+                  im_size=48, spatial_val=True, visual_freq=2)
+# the model's maps of two ranks against one process's, after a step (the
+# train folder) or a run (val): a prediction or pseudo-GT pixel whose two
+# best classes tie to float32 noise may take the other colour, as in
+# ``tests/test_torch_visualize.py`` (under 1% of the pixels there); a
+# gray map (flawmap, its ground truth, D's confidence) within a level
+COLOUR_SAME = 0.99
+GRAY_LEVELS = 1
+
+
+def _visual_pngs(root):
+    """{folder/name: (file bytes, pixels)} of the PNGs a run wrote under
+    ``root``."""
+    base = os.path.join(str(root), 'spatial', 'visualization')
+    out = {}
+    for sub in ('debug', 'train', 'val'):
+        for name in sorted(os.listdir(os.path.join(base, sub))):
+            path = os.path.join(base, sub, name)
+            with open(path, 'rb') as f:
+                out[sub + '/' + name] = (f.read(), imageio.read_png(path))
+    return out
+
+
+def _visual_runs(root):
+    """``--visualize`` in one process and on two ranks, on 4 synthetic
+    samples (2 labeled): GCT and AdvSSL under ``--spatial-train 2`` (2
+    iterations, the first visualized, then the validation's first batch),
+    SupOnly's ``--validation --spatial-val``; the PNGs of each and the
+    blur calls of each rank's visualizations."""
+    sub = root / 'sub.txt'
+    sub.write_text('synthetic_00000\nsynthetic_00002\n')
+    out = {}
+    for name, extra in list(VISUAL_RUNS.items()) + [('val', VISUAL_VAL)]:
+        config = _script_config(root / name / 'one', sub, **dict(
+            dict(visualize=True, visual_freq=100, synthetic_samples=4),
+            **extra))
+        pixelssl_tpu_torch.run_script(
+            config, sseg, sseg.SemanticSegmentationProxy, device='cpu',
+            cli_override=False)
+        flags = dict(distributed=True) if name == 'val' else dict(
+            distributed=True, spatial_train=2)
+        ranks = _spawn(dict(kind='script', config=dict(
+            config, out_path=str(root / name / 'two'), **flags)),
+            root / name / 'run', 2)
+        out[name] = {'one': _visual_pngs(root / name / 'one'),
+                     'two': _visual_pngs(root / name / 'two'),
+                     'blurs': [r['visual_blurs'] for r in ranks]}
+        shutil.rmtree(str(root / name))
+    return out
+
+
+@pytest.fixture(scope='module')
+def visual_runs(tmp_path_factory):
+    return _shared(tmp_path_factory, 'spatial_visual', _visual_runs)
+
+
+def _check_pngs(two, one):
+    """Two ranks' PNGs against one process's: the same names and sizes,
+    the input and GT byte for byte, the model's maps within
+    ``COLOUR_SAME`` / ``GRAY_LEVELS``."""
+    assert sorted(two) == sorted(one)
+    for name, (data, px) in one.items():
+        got_data, got = two[name]
+        assert got.shape == px.shape, name
+        if name.endswith(('1-inp.png', '3-gt.png')):
+            assert got_data == data, name
+        elif px.ndim == 3:
+            same = float((got == px).all(axis=-1).mean())
+            assert same >= COLOUR_SAME, (name, same)
+        else:
+            gap = int(np.abs(got.astype(int) - px).max())
+            assert gap <= GRAY_LEVELS, (name, gap)
+
+
+@pytest.mark.parametrize('name', sorted(VISUAL_RUNS))
+def test_spatial_train_visualize_writes_one_process_pngs(name, visual_runs):
+    """``--distributed --spatial-train 2 --visualize``: rank 0 writes the
+    PNGs that one process writes, from the rows its spatial group
+    gathers, the debug maps (GCT's flawmaps and pseudo-GT, D's
+    confidence) among them."""
+    run = visual_runs[name]
+    _check_pngs(run['two'], run['one'])
+    names = ' '.join(run['one'])
+    for token in ('train/0_0_', 'val/0_0_', '1-inp', '2-pred', '3-gt',
+                  'pseudo-gt' if name == 'ssl_gct' else 'labeled-cmap'):
+        assert token in names, token
+
+
+def test_spatial_train_gct_visualize_blurs_six_strips_on_each_rank(
+        visual_runs):
+    """A visualized GCT step blurs 6 times on each rank, each on its strip
+    of the 96-row maps ([r0 - R, r1 + R) rows)."""
+    h = VISUAL_RUNS['ssl_gct']['im_size']
+    ks = {int(h / 16) | 1, int(h / 8) | 1, int(h / 4) | 1}
+    for rank, visualized in enumerate(visual_runs['ssl_gct']['blurs']):
+        lo, hi = parallel.row_range(h, 2, rank)
+        assert len(visualized) == 1
+        for calls in visualized:
+            assert len(calls) == 6 and {k for _, k in calls} == ks
+            for shape, k in calls:
+                assert shape[1] == hi - lo + 2 * (k // 2), (shape, k)
+
+
+def test_spatial_val_visualize_writes_one_process_pngs(visual_runs):
+    """``--validation --spatial-val --visualize`` on two ranks: rank 0
+    writes one process's PNGs of the padded sample (48 px padded to the
+    64-px bucket), its rows gathered from both ranks."""
+    run = visual_runs['val']
+    _check_pngs(run['two'], run['one'])
+    assert sorted(run['one']) and all(n.startswith('val/')
+                                      for n in run['one'])
+    for name, (_, px) in run['one'].items():
+        assert px.shape[:2] == (64, 64), name
+
+
 REFUSALS = [
-    (dict(spatial_train=2, distributed=True, ssl_algorithm='ssl_adv'),
-     'ROADMAP A4c-2'),
-    (dict(spatial_train=2, distributed=True, ssl_algorithm='ssl_s4l'),
-     'ROADMAP A4c-2'),
-    (dict(spatial_train=2, distributed=True, ssl_algorithm='ssl_cutmix'),
-     'ROADMAP A4c-2'),
     (dict(spatial_val=True, ssl_algorithm='ssl_cct'), 'ROADMAP A4c-3'),
     (dict(spatial_val=True, models={'model': 'pspnet'}), 'ROADMAP A4c-3'),
-    (dict(spatial_train=2, distributed=True, visualize=True),
-     'ROADMAP A4c-2'),
-    (dict(spatial_val=True, visualize=True), 'ROADMAP A4c-2'),
+    (dict(spatial_train=2, distributed=True, ssl_algorithm='ssl_cct'),
+     'ROADMAP A4c-3'),
+    (dict(spatial_train=2, distributed=True, models={'model': 'pspnet'}),
+     'ROADMAP A4c-3'),
     (dict(spatial_train=2, spatial_val=True, distributed=True),
      'mutually exclusive'),
     (dict(spatial_train=2), 'launch with torchrun'),
@@ -715,9 +897,8 @@ REFUSALS = [
 
 
 @pytest.mark.parametrize('overrides,message', REFUSALS,
-                         ids=['adv', 's4l', 'cutmix', 'cct', 'pspnet',
-                              'visualize-train', 'visualize-val', 'both',
-                              'no-distributed'])
+                         ids=['cct', 'pspnet', 'cct-train', 'pspnet-train',
+                              'both', 'no-distributed'])
 def test_spatial_refusals(overrides, message, tmp_path):
     config = _script_config(tmp_path, _sub(tmp_path), **overrides)
     with pytest.raises(logger.FatalError) as err:
@@ -732,11 +913,11 @@ def test_spatial_train_refusals_of_the_harness_and_the_ranks():
     """``harness.build_algorithm`` refuses what the port does not run yet,
     and an N that does not divide the ranks as the JAX package does; the
     ``sreg`` task names A4c-3."""
-    args = harness.default_args('ssl_adv', backbone='resnet10', im_size=32,
+    args = harness.default_args('ssl_cct', backbone='resnet10', im_size=32,
                                 num_classes=NUM_CLASSES, spatial_train=2)
     with pytest.raises(logger.FatalError) as err:
         harness.build_algorithm(args, device='cpu')
-    assert 'ROADMAP A4c-2' in str(err.value)
+    assert 'ROADMAP A4c-3' in str(err.value)
     args = harness.default_args('ssl_mt', task='sreg', spatial_train=2)
     with pytest.raises(logger.FatalError) as err:
         harness.build_algorithm(args, device='cpu')
@@ -750,21 +931,30 @@ def test_spatial_train_refusals_of_the_harness_and_the_ranks():
 
 
 def test_sreg_script_with_spatial_val_stops(tmp_path):
+    _sreg_script_stops(tmp_path, spatial_val=True)
+
+
+def test_sreg_script_with_spatial_train_stops(tmp_path):
+    _sreg_script_stops(tmp_path, spatial_train=2, distributed=True)
+
+
+def _sreg_script_stops(tmp_path, **flags):
     from pixelssl_tpu_torch.tasks import sreg
     config = collections.OrderedDict([
         ('exp_id', 'sreg'), ('out_path', str(tmp_path)),
-        ('ssl_algorithm', 'ssl_null'), ('spatial_val', True),
+        ('ssl_algorithm', 'ssl_null'),
         ('trainset', {'synthetic_sreg': ['synthetic']}),
         ('valset', {'synthetic_sreg': ['synthetic']}),
         ('models', {'model': 'unet_lite'}),
         ('optimizers', {'model': 'adam'}),
         ('lrers', {'model': 'polynomiallr'}),
-        ('criterions', {'model': 'sreg_criterion'})])
+        ('criterions', {'model': 'sreg_criterion'})] + list(flags.items()))
     with pytest.raises(logger.FatalError) as err:
         pixelssl_tpu_torch.run_script(config, sreg,
                                       sreg.PixelRegressionProxy,
                                       device='cpu', cli_override=False)
     assert 'ROADMAP A4c-3' in str(err.value)
+    assert not torch.distributed.is_initialized()
 
 
 def test_spatial_spread_tool_reports_the_gaps(capsys):
