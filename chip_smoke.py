@@ -262,9 +262,21 @@ Phases, each printing a line as it ends:
     of each. Phase 3 also holds the kernel on the strips of rows of phases
     35 and 36 ([8,181,321] k=21, [4,201,321] k=41, [4,241,321] k=81 on
     rank 0, one row fewer on rank 1; the script's at 4+2 samples, its
-    visualization's at 4+4).
+    visualization's at 4+4) and of phase 38 ([4,289,513] k=33,
+    [2,321,513] k=65, [2,385,513] k=129 on rank 0, one row fewer on rank
+    1);
+38. phase 35's check of PSPNet and the sreg task under ``--spatial-train
+    2``: PSPNet/ResNet-101 @513 SupOnly 4+0, GCT 2+2 (its six blurs a step
+    on each rank's strips of the 513-row maps, k = 33, 65, 129) and CCT 2+2
+    with the 1-8 script's 11 decoders, and the sreg demo's MT
+    (``unet_lite`` base 32 @64, batch 1+1), the first step's losses held
+    (F13), the weights after it, the ranks equal and the blur launches;
+39. ``--spatial-val`` on two gloo ranks as in phase 37: PSPNet/ResNet-101
+    SupOnly on two 513 px images (padded to 544), and the sreg demo's
+    ``unet_lite`` on two 60 px images (padded to 64), whose scored valid
+    pixels are 2 x 60 x 60 on each rank and in one process.
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33 and 35-37 print
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33 and 35-39 print
 their step times and peak memory (the harness phases also the peak over the
 steps after the first, which leaves out cuDNN's autotuning of new shapes),
 and the run its total wall time and each phase's. Then one JSON line with
@@ -274,7 +286,7 @@ without CUDA or a directory without the port. It writes nothing but the
 kernel build under ``pixelssl_tpu_torch/build/``, and the checkpoints and
 run directories in temporary directories that it removes, and the
 augmentation library under the same directory. The processes of phases
-33-37 run this script again (``--worker``), each with a time limit, killed
+33-39 run this script again (``--worker``), each with a time limit, killed
 with every process it started past it; a failing one fails its phase. """
 
 import argparse
@@ -395,12 +407,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/37] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/39] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/37] host for the VOC input path: ' + '  '.join(
+    say('[1/39] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/37] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/39] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -448,11 +460,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/37] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/39] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/37] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/39] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -467,7 +479,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/37] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/39] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -497,7 +509,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/37] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/39] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -540,7 +552,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/37] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/39] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -635,9 +647,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/37]', 'GCT')
+    algo, batch = build_full_width(args, '[5/39]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/37]', 'GCT',
+        algo, batch, steps, '[5/39]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -701,7 +713,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/37] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/39] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -713,7 +725,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/37] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/39] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -766,16 +778,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/37]', 'MT')
+    algo, batch = build_full_width(args, '[7/39]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/37]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/39]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/37]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/39]', 'MT')
     return algo
 
 
@@ -783,8 +795,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/37]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/37]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/39]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/39]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -815,7 +827,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/37] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/39] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -843,7 +855,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/37] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/39] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -1015,7 +1027,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/37]'
+    tag = '[10/39]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -1151,7 +1163,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/37]'
+    tag = '[11/39]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1274,7 +1286,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/37]', what, args, seed, steps)
+        small_card_vs_cpu('[12/39]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1340,7 +1352,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/37] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/39] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1359,9 +1371,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/37]', what)
+        algo, batch = build_full_width(args, '[13/39]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/37]', what, positive)
+            algo, batch, steps, '[13/39]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1375,7 +1387,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/37] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/39] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1384,7 +1396,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/37]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/39]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1475,7 +1487,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/37]', algo, full_width_args(
+                '[14/39]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1487,7 +1499,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/37]'
+    tag = '[15/39]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1532,7 +1544,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/37]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/39]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1572,7 +1584,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/37] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/39] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1595,15 +1607,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/37]', what)
+        algo, batch = build_full_width(args, '[17/39]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/37] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/39] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/37]', what, positive)
+            algo, batch, steps, '[17/39]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1612,7 +1624,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/37] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/39] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1621,7 +1633,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/37]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/39]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1635,7 +1647,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/37]', algos['ssl_cct'], full_width_args(
+            '[18/39]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1647,7 +1659,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/37]'
+    tag = '[19/39]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1938,7 +1950,7 @@ def phase_sreg():
     from pixelssl_tpu_torch.tasks import sreg
     from pixelssl_tpu_torch.utils import logger
 
-    tag = '[23/37]'
+    tag = '[23/39]'
     demo = load_sreg_demo()
     gct_launches = None
     for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
@@ -2036,7 +2048,7 @@ def phase_optimizers(seed, steps):
     import torch
     from pixelssl_tpu_torch import harness
 
-    tag = '[24/37]'
+    tag = '[24/39]'
     for name, flags in OPTIMIZER_CASES:
         args = harness.default_args('ssl_mt', **dict(
             MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
@@ -2136,7 +2148,7 @@ def f32_steps(seed, steps, **flags):
                                unlabeled_batch_size=4,
                                **dict(MT_CONFIG, bf16=False, **flags))
         algo, batch = build_full_width(
-            args, '[25/37]', 'MT float32 ' + (' '.join(sorted(flags)) or
+            args, '[25/39]', 'MT float32 ' + (' '.join(sorted(flags)) or
                                               'plain'))
         losses, stats = [], None
         for s in range(steps):
@@ -2170,7 +2182,7 @@ def phase_sseg_flags(seed, steps):
     import torch
     from pixelssl_tpu_torch.models.resnet import resnet101
 
-    tag = '[25/37]'
+    tag = '[25/39]'
     runs = {}
     for label, flags in (('plain', {}), ('remat', dict(remat=True)),
                          ('bf16_opt_state', dict(bf16_opt_state=True)),
@@ -2524,7 +2536,7 @@ def phase_multi_step(seed):
     from pixelssl_tpu_torch.bench import restore, snapshot
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[26/37]'
+    tag = '[26/39]'
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
@@ -2770,7 +2782,7 @@ def phase_profile_dir():
     import glob
     import tempfile
 
-    tag = '[27/37]'
+    tag = '[27/39]'
     with tempfile.TemporaryDirectory() as out:
         prof_dir = os.path.join(out, 'prof')
         config = script_config(SCRIPT_MT, out, 'ssl_mt', PROFILE_SAMPLES)
@@ -2823,7 +2835,7 @@ def phase_eager_ingest():
     80GB HBM3. Each graph run passes ``script_graph_checks``."""
     import tempfile
 
-    tag = '[28/37]'
+    tag = '[28/39]'
     runs = {}
     for label, eager, n in INGEST_RUNS:
         with tempfile.TemporaryDirectory() as out:
@@ -2867,7 +2879,7 @@ def phase_bench():
 
     from pixelssl_tpu_torch import bench
 
-    tag = '[29/37]'
+    tag = '[29/39]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(['--steps', '8', '--calls', '3', '--cudnn-benchmark'])
@@ -2896,7 +2908,7 @@ def phase_serving():
 
     from pixelssl_tpu_torch.tools import export_serving, infer_bench
 
-    tag = '[30/37]'
+    tag = '[30/39]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         infer_bench.main(['--model', 'deeplabv2', '--backbone', 'resnet101',
@@ -2956,7 +2968,7 @@ def phase_rescore(seed):
     from pixelssl_tpu_torch.scripts import rescore as rescore_mod
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[31/37]'
+    tag = '[31/39]'
     script = 'deeplabv2_pascalvoc_1-8_suponly.py'
     root = os.path.abspath(VOC_FIXTURE)
     args = full_width_args('ssl_null', seed, batch_size=4,
@@ -3137,7 +3149,7 @@ def phase_visualize():
     import tempfile
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[32/37]'
+    tag = '[32/39]'
     launches = {}
     for algo_name, script, n, model_ids, debug in (
             ('ssl_gct', SCRIPT_GCT, 1, ('l', 'r'), GCT_DEBUG),
@@ -3316,7 +3328,7 @@ def phase_distributed():
     the distributed run's blur launches."""
     import tempfile
 
-    tag = '[33/37]'
+    tag = '[33/39]'
     here = os.path.abspath(__file__)
     runs = {}
     for name, cmd in (
@@ -3490,7 +3502,7 @@ def phase_gloo(seed):
     import numpy as np
     import torch
 
-    tag = '[34/37]'
+    tag = '[34/39]'
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as out:
@@ -3541,7 +3553,7 @@ def phase_gloo(seed):
         torch.backends.cudnn.deterministic = False
 
 # ---------------------------------------------------------------------------
-# phases 35-37: spatial partitioning (--spatial-train, --spatial-val)
+# phases 35-39: spatial partitioning (--spatial-train, --spatial-val)
 # ---------------------------------------------------------------------------
 
 SPATIAL_N = 2
@@ -3553,20 +3565,51 @@ SPATIAL_STEPS = 2
 # second step's loss at the recipes' 2.5e-4 (BN statistics by 1.86) and by
 # 4.9e-4 at 1e-5 (0.22); two spatial ranks by 1.2e-2 and 1.2e-3
 SPATIAL_LR = 1e-5
+# (name, algorithm, flags) of each cell of phase 35, DeepLab-v2 @321
 SPATIAL_CASES = (
-    ('ssl_null', dict(NULL_CONFIG, batch_size=4, unlabeled_batch_size=0,
-                      lr=SPATIAL_LR)),
-    ('ssl_mt', dict(MT_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                    ignore_unlabeled=False, gaussian_noise_std=0.1,
-                    lr=SPATIAL_LR)),
-    ('ssl_gct', dict(GCT_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                     lr=SPATIAL_LR)),
-    ('ssl_adv', dict(ADV_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                     ignore_unlabeled=False, lr=SPATIAL_LR)),
-    ('ssl_s4l', dict(S4L_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                     ignore_unlabeled=False, lr=SPATIAL_LR)),
-    ('ssl_cutmix', dict(CUTMIX_CONFIG, batch_size=8, unlabeled_batch_size=4,
-                        ignore_unlabeled=False, lr=SPATIAL_LR)))
+    ('ssl_null', 'ssl_null', dict(NULL_CONFIG, batch_size=4,
+                                  unlabeled_batch_size=0, lr=SPATIAL_LR)),
+    ('ssl_mt', 'ssl_mt', dict(MT_CONFIG, batch_size=8,
+                              unlabeled_batch_size=4, ignore_unlabeled=False,
+                              gaussian_noise_std=0.1, lr=SPATIAL_LR)),
+    ('ssl_gct', 'ssl_gct', dict(GCT_CONFIG, batch_size=8,
+                                unlabeled_batch_size=4, lr=SPATIAL_LR)),
+    ('ssl_adv', 'ssl_adv', dict(ADV_CONFIG, batch_size=8,
+                                unlabeled_batch_size=4,
+                                ignore_unlabeled=False, lr=SPATIAL_LR)),
+    ('ssl_s4l', 'ssl_s4l', dict(S4L_CONFIG, batch_size=8,
+                                unlabeled_batch_size=4,
+                                ignore_unlabeled=False, lr=SPATIAL_LR)),
+    ('ssl_cutmix', 'ssl_cutmix', dict(CUTMIX_CONFIG, batch_size=8,
+                                      unlabeled_batch_size=4,
+                                      ignore_unlabeled=False,
+                                      lr=SPATIAL_LR)))
+# phase 38: PSPNet/ResNet-101 @513 at its scripts' batches (GCT's blur on
+# strips of the 513-row maps: k = 33, 65, 129), CCT with the 1-8 script's
+# 11 decoders, and the sreg demo's MT at its width (unet_lite base 32 @64,
+# batch 1 + 1; SGD, whose first update does not turn float32 noise into
+# Adam's lr * sign(g))
+PSP_GCT_BATCH = (4, 2)
+SPATIAL_MODEL_CASES = (
+    ('psp_null', 'ssl_null', dict(NULL_CONFIG, model='pspnet', batch_size=4,
+                                  unlabeled_batch_size=0, lr=SPATIAL_LR)),
+    ('psp_gct', 'ssl_gct', dict(GCT_CONFIG, model='pspnet',
+                                batch_size=PSP_GCT_BATCH[0],
+                                unlabeled_batch_size=PSP_GCT_BATCH[1],
+                                lr=SPATIAL_LR)),
+    ('psp_cct', 'ssl_cct', dict(CCT_CONFIG, model='pspnet', batch_size=4,
+                                unlabeled_batch_size=2,
+                                ignore_unlabeled=False, lr=SPATIAL_LR)),
+    ('sreg_mt', 'ssl_mt', dict(task='sreg', base_channels=32, im_size=64,
+                               batch_size=2, unlabeled_batch_size=1,
+                               ignore_unlabeled=False, cons_scale=1.0,
+                               cons_rampup_epochs=2, ema_decay=0.99,
+                               gaussian_noise_std=0.05, lr=1e-3,
+                               momentum=0.9)))
+# phase 38 holds the first step only (F13: the pyramid's one-bin BatchNorm
+# over the 2 labeled samples of a 2 + 2 batch magnifies float32 noise
+# further after it); the later gaps are printed
+SPATIAL_MODEL_HELD_STEPS = 1
 # the thresholded GCT losses and the consistencies of MT and CutMix (its
 # confidence a thresholded pixel share), against one process
 SPATIAL_LOOSE = {'cons_loss', 'l_fc_loss', 'r_fc_loss', 'l_dc_loss',
@@ -3626,16 +3669,28 @@ def spatial_blur_cases(batch_size, unlabeled_batch_size, im_size,
     return [(n, hi - lo + 2 * (k // 2), w, k) for n, _, w, k in cases]
 
 
+def spatial_args(algo_name, config, seed, distributed):
+    """The arguments of a spatial cell in float32: ``full_width_args``
+    (DeepLab-v2 @321 or, with ``model='pspnet'``, PSPNet @513), or the
+    ``sreg`` task's for ``task='sreg'``; ``--spatial-train`` on the grid
+    when ``distributed``."""
+    from pixelssl_tpu_torch import harness
+    flags = dict(config, bf16=False,
+                 spatial_train=SPATIAL_N if distributed else 0)
+    if flags.get('task') == 'sreg':
+        return harness.default_args(algo_name, seed=seed, epochs=20, **flags)
+    return full_width_args(algo_name, seed, **flags)
+
+
 def spatial_case(algo_name, config, seed, device='cuda'):
-    """Build ``algo_name`` at full width (DeepLab-v2/ResNet-101 OS 16 @321,
-    21 classes) in float32 from ``seed``, on this process's place in the
-    run (a 1 x SPATIAL_N grid under a process group), and take
-    ``SPATIAL_STEPS`` steps on its samples and rows of the global batch,
-    timed; returns the step metrics, the step ms, the peak memory (GiB,
-    from the build on), the blur launches, the algorithm, the row
-    exchanges' host ms, count and MiB a step, and the weights after the
-    first step (``float_state``)."""
-    import numpy as np
+    """Build ``algo_name`` at full width (``spatial_args``) from ``seed``,
+    on this process's place in the run (a 1 x SPATIAL_N grid under a
+    process group), and take ``SPATIAL_STEPS`` steps on its samples and
+    rows of the global batch (``harness.synthetic_batch``), timed; returns
+    the step metrics, the step ms, the peak memory (GiB, from the build
+    on), the blur launches, the algorithm, the row exchanges' host ms,
+    count and MiB a step, and the weights after the first step
+    (``float_state``)."""
     import torch
     from pixelssl_tpu_torch import harness
     from pixelssl_tpu_torch.ops import blur
@@ -3644,25 +3699,10 @@ def spatial_case(algo_name, config, seed, device='cuda'):
     distributed = torch.distributed.is_initialized()
     torch.cuda.synchronize()
     held = reset_peak()
-    args = full_width_args(algo_name, seed, bf16=False,
-                           spatial_train=SPATIAL_N if distributed else 0,
-                           **config)
+    args = spatial_args(algo_name, config, seed, distributed)
     algo = harness.build_algorithm(args, device=device,
                                    iters_per_epoch=ITERS_PER_EPOCH)
-    rng = np.random.default_rng(seed)
-    b, s = args.batch_size, args.im_size
-    images = rng.standard_normal((b, s, s, 3)).astype(np.float32)
-    labels = rng.integers(0, args.num_classes, (b, s, s)).astype(np.int32)
-    labels[args.labeled_batch_size:] = -1
-    if distributed:
-        (images, labels), height = spatial.shard_train_batch(
-            (images, labels), args.labeled_batch_size,
-            args.unlabeled_batch_size, algo.mesh,
-            spatial.pairs_unlabeled(args))
-        batch = dict(harness._to_batch(images, labels, device),
-                     height=height)
-    else:
-        batch = harness._to_batch(images, labels, device)
+    batch = harness.synthetic_batch(args, device=device, seed=seed)
     blur.launches = 0
     history, step_ms = [], []
     # the row exchanges' host time (with gloo each waits for the card, and
@@ -3713,10 +3753,10 @@ def float_state(algo):
             for k, m in algo.modules.items()}
 
 
-def worker_spatial(out, seed):
-    """One of phase 35's two ranks: a gloo group from ``torchrun``'s
-    environment, both ranks on card 0, ``spatial_case`` for each of
-    ``SPATIAL_CASES``; each rank checks that its weights equal rank 0's,
+def worker_spatial(out, seed, cases):
+    """One of the two ranks of phase 35 or 38: a gloo group from
+    ``torchrun``'s environment, both ranks on card 0, ``spatial_case`` for
+    each of ``cases``; each rank checks that its weights equal rank 0's,
     and rank 0 writes its states. Writes ``rank<r>.pt`` into ``out``."""
     import torch
     import torch.distributed as dist
@@ -3726,9 +3766,9 @@ def worker_spatial(out, seed):
     dist.init_process_group('gloo')
     rank = dist.get_rank()
     result = {}
-    for name, config in SPATIAL_CASES:
+    for name, algo_name, config in cases:
         history, step_ms, peak, launches, algo, staging, first = \
-            spatial_case(name, config, seed, 'cuda:0')
+            spatial_case(algo_name, config, seed, 'cuda:0')
         flat = torch.cat([t.detach().float().reshape(-1) for m in
                           algo.modules.values() for t in
                           m.state_dict().values()])
@@ -3766,37 +3806,56 @@ def phase_spatial_train(seed):
     (``worker_spatial``) against one process on the whole batch: SupOnly
     4+0, MT 4+4 with input noise, GCT, AdvSSL, S4L and CutMix 4+4 (each
     rank a share of each half of CutMix's unlabeled block) at full width
-    in float32,
-    cuDNN deterministic, two steps from the same weights at lr
-    ``SPATIAL_LR``. The losses of both steps within rtol 2e-3 (the
-    thresholded GCT losses and the consistencies within 2e-2; the losses
-    that read GCT's flaw detector or AdvSSL's D on the first step only,
-    their later gaps printed), the parameters after the first step within atol
-    1e-3 and the BN statistics within atol 1e-2 (after the second the
-    gaps are printed: a random-weight ResNet-101 magnifies float32 noise
-    step by step, one process against itself too), the ranks equal; each
-    one's step ms and peak memory printed beside one process's. Returns
-    the GCT run's blur launches on rank 0."""
+    in float32, cuDNN deterministic, two steps from the same weights at lr
+    ``SPATIAL_LR`` (``spatial_cells``: the losses of both steps held).
+    Returns the GCT run's blur launches on rank 0."""
+    return spatial_cells('[35/39]', 'spatial', SPATIAL_CASES, seed,
+                         SPATIAL_STEPS)['ssl_gct']
+
+
+def phase_spatial_models(seed):
+    """Phase 35's check of ``SPATIAL_MODEL_CASES``: PSPNet/ResNet-101 @513
+    SupOnly 4+0, GCT 2+2 (its blur on strips of the 513-row maps) and CCT
+    2+2 with 11 decoders, and the sreg demo's MT (``unet_lite`` base 32
+    @64), the first step's losses held. Returns the PSPNet GCT run's blur
+    launches on rank 0."""
+    return spatial_cells('[38/39]', 'spatial_models', SPATIAL_MODEL_CASES,
+                         seed, SPATIAL_MODEL_HELD_STEPS)['psp_gct']
+
+
+def spatial_cells(tag, worker, cases, seed, held_steps):
+    """``cases`` under ``--spatial-train 2`` on two gloo ranks sharing the
+    card (``--worker worker``) against one process on the whole batch, in
+    float32, cuDNN deterministic, ``SPATIAL_STEPS`` steps from the same
+    weights. The losses of the first ``held_steps`` steps within rtol 2e-3
+    (the thresholded GCT losses and the consistencies within 2e-2; the
+    losses that read GCT's flaw detector or AdvSSL's D on the first step
+    only, their later gaps printed), the parameters after the first step
+    within atol 1e-3 and the BN statistics within atol 1e-2 (after the
+    last the gaps are printed: a random-weight ResNet-101 magnifies
+    float32 noise step by step, one process against itself too), the
+    ranks equal, each rank's blur launches one process's; each one's step
+    ms and peak memory printed beside one process's. Returns rank 0's blur
+    launches of each case."""
     import tempfile
     import torch
 
-    tag = '[35/37]'
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as out:
             wall = run_bounded(tag, torchrun(SPATIAL_N) + [
-                os.path.abspath(__file__), '--worker', 'spatial', '--out',
+                os.path.abspath(__file__), '--worker', worker, '--out',
                 out, '--seed', str(seed)])
             ranks = [torch.load(os.path.join(out, 'rank{0}.pt'.format(r)),
                                 weights_only=False)
                      for r in range(SPATIAL_N)]
             say('{0} {1} gloo ranks sharing the card: {2:.1f} s'.format(
                 tag, SPATIAL_N, wall))
-            launches = ranks[0]['ssl_gct']['launches']
-            for name, config in SPATIAL_CASES:
+            for name, algo_name, config in cases:
                 history, step_ms, peak, one_launches, algo, _, first = \
-                    spatial_case(name, config, seed)
+                    spatial_case(algo_name, config, seed)
+                im_size = algo.args.im_size
                 ranks_state = torch.load(os.path.join(
                     out, '{0}.pt'.format(name)), weights_only=False)
                 gap = state_gap(ranks_state['first'], first)
@@ -3804,7 +3863,7 @@ def phase_spatial_train(seed):
                 del ranks_state, first
                 del algo
                 torch.cuda.empty_cache()
-                worst = {'loss': 0.0, 'loose': 0.0, 'fd_later': 0.0}
+                worst = {'loss': 0.0, 'loose': 0.0, 'later': 0.0}
                 for rank, result in enumerate(ranks):
                     r = result[name]
                     if not r['equal_to_rank0'] or r['grid'] != (1, SPATIAL_N):
@@ -3821,9 +3880,9 @@ def phase_spatial_train(seed):
                             gap_k = abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
                             loose = k in SPATIAL_LOOSE
                             key = 'loose' if loose else 'loss'
-                            if k in SPATIAL_FD_KEYS and s > 0:
-                                worst['fd_later'] = max(worst['fd_later'],
-                                                        gap_k)
+                            if s >= held_steps or (k in SPATIAL_FD_KEYS and
+                                                   s > 0):
+                                worst['later'] = max(worst['later'], gap_k)
                                 continue
                             worst[key] = max(worst[key], gap_k)
                             if not math.isclose(a[k], b[k], rel_tol=(
@@ -3836,18 +3895,20 @@ def phase_spatial_train(seed):
                     raise AssertionError('{0} {1}: weights differ from one '
                                          'process by {2}'.format(tag, name,
                                                                  gap))
-                say('{0} {1} @321 {2}+{3}, 1 x {4} grid: {5} steps equal one '
+                say('{0} {1} @{14} {2}+{3}, 1 x {4} grid: {5} steps equal one '
                     'process on the whole batch (largest relative loss gap '
                     '{6:.3g}, thresholded {7:.3g}; after step 0 parameters '
                     '{8:.3g}, BN statistics {9:.3g}; after the last '
-                    '{10:.3g}, {11:.3g}; the FD-read losses after its first '
-                    'update {13:.3g}); blur launches {12} a rank'.format(
+                    '{10:.3g}, {11:.3g}; the losses not held (later steps, '
+                    'the FD- and D-read ones after the first update) '
+                    '{13:.3g}); blur launches {12} a rank'.format(
                         tag, name, config['batch_size'] -
                         config['unlabeled_batch_size'],
                         config['unlabeled_batch_size'], SPATIAL_N,
-                        SPATIAL_STEPS, worst['loss'], worst['loose'],
+                        held_steps, worst['loss'], worst['loose'],
                         gap['param'], gap['stat'], last_gap['param'],
-                        last_gap['stat'], one_launches, worst['fd_later']))
+                        last_gap['stat'], one_launches, worst['later'],
+                        im_size))
                 say('{0} {1}: ms a step, one process {2}, ranks {3}; peak '
                     'memory (above what each held) one process {4:.2f} GiB, '
                     'a rank {5}'.format(
@@ -3865,7 +3926,7 @@ def phase_spatial_train(seed):
     finally:
         torch.backends.cudnn.deterministic = False
         torch.backends.cudnn.benchmark = True
-    return launches
+    return {name: ranks[0][name]['launches'] for name, _, _ in cases}
 
 
 def spatial_script_config(out):
@@ -4067,7 +4128,7 @@ def phase_spatial_script():
     from pixelssl_tpu_torch.ops import blur
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[36/37]'
+    tag = '[36/39]'
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     try:
@@ -4195,49 +4256,71 @@ def phase_spatial_script():
     return ranks[0]['launches'], ranks[0]['visualized'][0]['launches']
 
 
-def spatial_val_config(out, seed):
-    """SupOnly on DeepLab-v2/ResNet-101 @``SPATIAL_VAL_SIZE`` (padded to
-    the 32-px bucket, 1056), 21 classes, float32, validation only of
-    ``SPATIAL_VAL_SAMPLES`` synthetic images, random weights from
-    ``seed``, each image's PNGs written (``--visualize``)."""
+# --spatial-val of phase 37 (DeepLab-v2 @1025, with --visualize) and of
+# phase 39 (PSPNet @513, padded to 544; the sreg demo's unet_lite base 32
+# at 60 px, padded to 64, whose padded rows lie on rank 1 and must score
+# nothing): {case: (model or task, image size)}
+SPATIAL_VAL_CASES = {'deeplabv2': ('deeplabv2', SPATIAL_VAL_SIZE),
+                     'pspnet': ('pspnet', 513), 'sreg': ('sreg', 60)}
+
+
+def spatial_val_config(out, seed, case='deeplabv2'):
+    """Validation only of ``SPATIAL_VAL_SAMPLES`` synthetic images (padded
+    to the 32-px bucket) at random weights from ``seed``, float32:
+    SupOnly on DeepLab-v2/ResNet-101 (each image's PNGs written,
+    ``--visualize``) or PSPNet/ResNet-101, 21 classes; or the sreg demo's
+    SupOnly config (``case`` 'sreg')."""
     import collections
+    model, size = SPATIAL_VAL_CASES[case]
+    if model == 'sreg':
+        config = load_sreg_demo()['make_config']('ssl_null', out)
+        config.update(exp_id='spatial_val', validation=True,
+                      synthetic_samples=SPATIAL_VAL_SAMPLES, im_size=size,
+                      bf16=False, seed=seed)
+        return config
     return collections.OrderedDict([
         ('exp_id', 'spatial_val'), ('out_path', out),
         ('ssl_algorithm', 'ssl_null'), ('validation', True),
         ('trainset', {'synthetic_sseg': ['synthetic']}),
         ('valset', {'synthetic_sseg': ['synthetic']}),
         ('synthetic_samples', SPATIAL_VAL_SAMPLES),
-        ('models', {'model': 'deeplabv2'}),
+        ('models', {'model': model}),
         ('optimizers', {'model': 'sgd'}),
         ('lrers', {'model': 'polynomiallr'}),
         ('criterions', {'model': 'sseg_criterion'}),
         ('backbone', 'resnet101'), ('output_stride', 16),
-        ('im_size', SPATIAL_VAL_SIZE), ('num_classes', 21),
+        ('im_size', size), ('num_classes', 21),
         ('batch_size', 1), ('unlabeled_batch_size', 0), ('bf16', False),
         ('lr', 2.5e-4), ('num_workers', 0), ('seed', seed),
-        ('visualize', True), ('visual_freq', 1)])
+        ('visualize', model == 'deeplabv2'), ('visual_freq', 1)])
 
 
 def spatial_val_run(config):
     """``run_script`` of ``config``; (scores and losses, wall s, peak GiB
     of the run and of a second validation without the PNGs, the eval
-    forward's ms per image on that one, and the PNGs of the first)."""
+    forward's ms per image on that one, the PNGs of the first, and for
+    the sreg task the valid pixels it scored)."""
     import torch
     import pixelssl_tpu_torch
-    from pixelssl_tpu_torch.tasks import sseg
+    from pixelssl_tpu_torch.tasks import sreg, sseg
 
+    task, proxy_class = ((sreg, sreg.PixelRegressionProxy)
+                         if 'base_channels' in config else
+                         (sseg, sseg.SemanticSegmentationProxy))
     torch.cuda.synchronize()
     held = reset_peak()
     t0 = time.perf_counter()
     proxy = pixelssl_tpu_torch.run_script(
-        config, sseg, sseg.SemanticSegmentationProxy, device='cuda',
-        cli_override=False)
+        config, task, proxy_class, device='cuda', cli_override=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     algo = proxy.ssl_algorithm
     scores = {k: m.avg for k, m in algo.meters.items()
               if 'metric' in k or k.endswith('_loss')}
-    pngs = visual_pngs(config) if algo.mesh.rank == 0 else None
+    valid = [float(m.sum[2]) for k, m in algo.meters.items()
+             if k.endswith('_err_sums')]
+    pngs = (visual_pngs(config) if algo.mesh.rank == 0 and
+            config.get('visualize') else None)
     peak = peak_above(held)
     algo.args.visualize = False
     torch.cuda.reset_peak_memory_stats()
@@ -4248,24 +4331,27 @@ def spatial_val_run(config):
     end.record()
     torch.cuda.synchronize()
     return (scores, wall, (peak, peak_above(held)),
-            start.elapsed_time(end) / len(proxy.val_loader), pngs)
+            start.elapsed_time(end) / len(proxy.val_loader), pngs,
+            valid[0] if valid else None)
 
 
-def worker_spatial_val(out, seed):
-    """One of phase 37's two ranks: ``spatial_val_config`` with
-    ``--spatial-val --distributed``, both ranks on card 0 over gloo; writes
-    ``rank<r>.json``."""
+def worker_spatial_val(out, seed, cases):
+    """One of the two ranks of phase 37 or 39: ``spatial_val_config`` of
+    each of ``cases`` with ``--spatial-val --distributed``, both ranks on
+    card 0 over gloo; writes ``<case>_rank<r>.json``."""
     import torch
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     gloo_on_card_0()
-    config = spatial_val_config(os.path.join(out, 'run'), seed)
-    config.update(spatial_val=True, distributed=True)
-    scores, wall, peak, ms, _ = spatial_val_run(config)
     rank = torch.distributed.get_rank()
-    with open(os.path.join(out, 'rank{0}.json'.format(rank)), 'w') as f:
-        json.dump({'scores': scores, 'wall_s': wall, 'peak_gib': peak,
-                   'ms_per_image': ms}, f)
+    for case in cases:
+        config = spatial_val_config(os.path.join(out, case), seed, case)
+        config.update(spatial_val=True, distributed=True)
+        scores, wall, peak, ms, _, valid = spatial_val_run(config)
+        with open(os.path.join(out, '{0}_rank{1}.json'.format(case, rank)),
+                  'w') as f:
+            json.dump({'scores': scores, 'wall_s': wall, 'peak_gib': peak,
+                       'ms_per_image': ms, 'valid': valid}, f)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 
@@ -4273,72 +4359,108 @@ def worker_spatial_val(out, seed):
 def phase_spatial_val(seed):
     """``--spatial-val --visualize`` on two gloo ranks sharing the card
     against one process's bucketed validation of the same padded images:
-    SupOnly on DeepLab-v2/ResNet-101 at 1025 px (padded to 1056), float32,
-    cuDNN deterministic; losses rtol 1e-5, scores atol 1e-4 (a pixel whose
-    best two logits tie to float noise may take the other class); rank 0's
-    PNGs of each image, from the rows both ranks hold, against one
-    process's (``compare_visuals``); each one's peak memory and ms an
-    image printed."""
+    SupOnly on DeepLab-v2/ResNet-101 at 1025 px (padded to 1056)
+    (``spatial_val_cells``), rank 0's PNGs of each image, from the rows
+    both ranks hold, against one process's (``compare_visuals``)."""
+    spatial_val_cells('[37/39]', ('deeplabv2',), seed)
+
+
+def phase_spatial_val_models(seed):
+    """``--spatial-val`` on two gloo ranks as in phase 37: SupOnly on
+    PSPNet/ResNet-101 at 513 px (padded to 544), and the sreg demo's
+    ``unet_lite`` at 60 px (padded to 64), whose valid pixels, on each
+    rank and in one process, are the unpadded ones."""
+    spatial_val_cells('[39/39]', ('pspnet', 'sreg'), seed)
+
+
+def spatial_val_cells(tag, cases, seed):
+    """Each of ``cases`` (``SPATIAL_VAL_CASES``) validated on two gloo ranks
+    (``worker_spatial_val``) and in one process, float32, cuDNN
+    deterministic: losses rtol 1e-5, scores atol 1e-4 (a pixel whose best
+    two logits tie to float noise may take the other class); the PNGs
+    where the case writes them, the valid pixels where it counts them;
+    each one's peak memory and ms an image printed."""
     import tempfile
     import torch
 
-    tag = '[37/37]'
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as out:
             wall = run_bounded(tag, torchrun(SPATIAL_N) + [
                 os.path.abspath(__file__), '--worker', 'spatial_val',
-                '--out', out, '--seed', str(seed)])
-            ranks = []
-            for r in range(SPATIAL_N):
-                with open(os.path.join(out, 'rank{0}.json'.format(r))) as f:
-                    ranks.append(json.load(f))
-            scores, one_wall, one_peak, one_ms, one_pngs = spatial_val_run(
-                spatial_val_config(os.path.join(out, 'one'), seed))
-            rank_config = spatial_val_config(os.path.join(out, 'run'), seed)
-            visual_gap = compare_visuals(tag, '--spatial-val --visualize',
-                                         visual_pngs(rank_config), one_pngs)
-        gaps = {'loss': 0.0, 'score': 0.0}
-        for rank, r in enumerate(ranks):
-            if set(r['scores']) != set(scores):
-                raise AssertionError('{0} rank {1}: {2} vs {3}'.format(
-                    tag, rank, r['scores'], scores))
-            for k, v in scores.items():
-                a = r['scores'][k]
-                if k.endswith('_loss'):
-                    gaps['loss'] = max(gaps['loss'], abs(a - v) / abs(v))
-                    ok = math.isclose(a, v, rel_tol=1e-5)
-                else:
-                    gaps['score'] = max(gaps['score'], abs(a - v))
-                    ok = abs(a - v) <= 1e-4
-                if not ok:
-                    raise AssertionError('{0} rank {1} {2}: {3} vs {4}'
-                                         .format(tag, rank, k, a, v))
-        say('{0} --spatial-val on {1} gloo ranks ({2:.1f} s), DeepLab-v2/'
-            'ResNet-101 @{3} (padded to {8}), {4} images: equal to one '
-            'process (largest loss gap {5:.3g} relative, score gap {6:.3g}); '
-            '{7}'.format(tag, SPATIAL_N, wall, SPATIAL_VAL_SIZE,
-                         SPATIAL_VAL_SAMPLES, gaps['loss'], gaps['score'],
-                         '  '.join('{0} {1:.5f}'.format(k, v) for k, v in
-                                   sorted(scores.items())),
-                         -(-SPATIAL_VAL_SIZE // 32) * 32))
+                '--out', out, '--seed', str(seed), '--cases',
+                ','.join(cases)])
+            say('{0} {1} gloo ranks: {2:.1f} s'.format(tag, SPATIAL_N, wall))
+            for case in cases:
+                spatial_val_case(tag, case, seed, out)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+
+
+def spatial_val_case(tag, case, seed, out):
+    ranks = []
+    for r in range(SPATIAL_N):
+        with open(os.path.join(out, '{0}_rank{1}.json'.format(case, r))) as f:
+            ranks.append(json.load(f))
+    config = spatial_val_config(os.path.join(out, case + '_one'), seed, case)
+    scores, one_wall, one_peak, one_ms, one_pngs, one_valid = \
+        spatial_val_run(config)
+    model, size = SPATIAL_VAL_CASES[case]
+    padded = -(-size // 32) * 32
+    gaps = {'loss': 0.0, 'score': 0.0}
+    for rank, r in enumerate(ranks):
+        if set(r['scores']) != set(scores):
+            raise AssertionError('{0} rank {1}: {2} vs {3}'.format(
+                tag, rank, r['scores'], scores))
+        for k, v in scores.items():
+            a = r['scores'][k]
+            if k.endswith('_loss'):
+                gaps['loss'] = max(gaps['loss'], abs(a - v) / abs(v))
+                ok = math.isclose(a, v, rel_tol=1e-5)
+            else:
+                gaps['score'] = max(gaps['score'], abs(a - v))
+                ok = abs(a - v) <= 1e-4
+            if not ok:
+                raise AssertionError('{0} rank {1} {2}: {3} vs {4}'
+                                     .format(tag, rank, k, a, v))
+        if one_valid is not None and r['valid'] != one_valid:
+            raise AssertionError('{0} rank {1}: {2} valid pixels, one '
+                                 'process {3}'.format(tag, rank, r['valid'],
+                                                      one_valid))
+    what = ('sreg unet_lite base 32' if model == 'sreg' else
+            '{0}/ResNet-101'.format(MODEL_NAMES[model]))
+    say('{0} --spatial-val on {1} gloo ranks, {2} @{3} (padded to {4}), {5} '
+        'images: equal to one process (largest loss gap {6:.3g} relative, '
+        'score gap {7:.3g}); {8}'.format(
+            tag, SPATIAL_N, what, size, padded, SPATIAL_VAL_SAMPLES,
+            gaps['loss'], gaps['score'], '  '.join(
+                '{0} {1:.5f}'.format(k, v) for k, v in
+                sorted(scores.items()))))
+    if one_valid is not None:
+        if one_valid != SPATIAL_VAL_SAMPLES * size * size:
+            raise AssertionError('{0} {1} valid pixels, not {2} x {3} x {3}'
+                                 .format(tag, one_valid, SPATIAL_VAL_SAMPLES,
+                                         size))
+        say('{0} valid pixels scored, one process and each rank: {1:.0f} = '
+            '{2} x {3} x {3} (the padded rows none)'.format(
+                tag, one_valid, SPATIAL_VAL_SAMPLES, size))
+    if one_pngs is not None:
+        rank_config = spatial_val_config(os.path.join(out, case), seed, case)
+        visual_gap = compare_visuals(tag, '--spatial-val --visualize',
+                                     visual_pngs(rank_config), one_pngs)
         say('{0} --visualize: rank 0 wrote one process\'s {1} PNGs of the '
             'padded images, inputs and GT equal, the predictions {2:.4f} of '
             'the pixels the same colour'.format(tag, len(one_pngs),
                                                visual_gap['colour_same']))
-        say('{0} peak memory (above what each held; the run with its '
-            'PNGs, then a validation without) one process {1:.2f} / {2:.2f} '
-            'GiB, a rank {3}; ms an image one process {4:.1f}, ranks {5}'
-            .format(
-                tag, one_peak[0], one_peak[1], ' / '.join(
-                    '{0:.2f} / {1:.2f} GiB'.format(*r['peak_gib'])
-                    for r in ranks), one_ms,
-                ' / '.join('{0:.1f}'.format(r['ms_per_image'])
-                           for r in ranks)))
-    finally:
-        torch.backends.cudnn.deterministic = False
-        torch.backends.cudnn.benchmark = True
+    say('{0} {1}: peak memory (above what each held; the run, then a '
+        'validation without its PNGs) one process {2:.2f} / {3:.2f} GiB, a '
+        'rank {4}; ms an image one process {5:.1f}, ranks {6}'.format(
+            tag, what, one_peak[0], one_peak[1], ' / '.join(
+                '{0:.2f} / {1:.2f} GiB'.format(*r['peak_gib'])
+                for r in ranks), one_ms,
+            ' / '.join('{0:.1f}'.format(r['ms_per_image']) for r in ranks)))
 
 
 def main(argv=None):
@@ -4346,10 +4468,12 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=0)
     # the processes that phases 33 and 34 start run this script again
     parser.add_argument('--worker', choices=('gct', 'gloo', 'spatial',
+                                             'spatial_models',
                                              'spatial_script',
                                              'spatial_val'),
                         help=argparse.SUPPRESS)
     parser.add_argument('--out', help=argparse.SUPPRESS)
+    parser.add_argument('--cases', help=argparse.SUPPRESS)
     parser.add_argument('--distributed', action='store_true',
                         help=argparse.SUPPRESS)
     opts = parser.parse_args(argv)
@@ -4381,14 +4505,15 @@ def main(argv=None):
     if opts.worker == 'gloo':
         worker_gloo(opts.out, opts.seed)
         return 0
-    if opts.worker == 'spatial':
-        worker_spatial(opts.out, opts.seed)
+    if opts.worker in ('spatial', 'spatial_models'):
+        worker_spatial(opts.out, opts.seed, SPATIAL_CASES
+                       if opts.worker == 'spatial' else SPATIAL_MODEL_CASES)
         return 0
     if opts.worker == 'spatial_script':
         worker_spatial_script(opts.out)
         return 0
     if opts.worker == 'spatial_val':
-        worker_spatial_val(opts.out, opts.seed)
+        worker_spatial_val(opts.out, opts.seed, opts.cases.split(','))
         return 0
     torch.backends.cudnn.benchmark = True
 
@@ -4416,7 +4541,10 @@ def main(argv=None):
                 *script_batch(SCRIPT_GCT)),
             'spatial_visualize_gct': spatial_blur_cases(
                 *script_batch(SCRIPT_GCT),
-                cases=script_debug_blur_cases(SCRIPT_GCT))})
+                cases=script_debug_blur_cases(SCRIPT_GCT)),
+            'spatial_psp_gct': spatial_blur_cases(*PSP_GCT_BATCH, 513),
+            'spatial_psp_gct_rank1': spatial_blur_cases(*PSP_GCT_BATCH, 513,
+                                                        rank=1)})
         run('4', phase_small_reference, opts.seed)
         launches = run('5', phase_main_path, opts.seed, STEPS)
         run('6', phase_small_mt_null, opts.seed, STEPS)
@@ -4436,12 +4564,12 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/37]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/37]', SCRIPT_GCT, 'ssl_gct',
+        run('20', phase_voc, '[20/39]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/39]', SCRIPT_GCT, 'ssl_gct',
                            BLUR_LAUNCHES_PER_STEP, multi=True,
                            native_augment=True, decoded_cache=True,
                            u8_transfer=True)
-        run('22', phase_voc, '[22/37]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('22', phase_voc, '[22/39]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
         sreg_launches = run('23', phase_sreg)
         run('24', phase_optimizers, opts.seed, STEPS)
         run('25', phase_sseg_flags, opts.seed, STEPS)
@@ -4458,6 +4586,8 @@ def main(argv=None):
         spatial_script_launches, spatial_visual_launches = run(
             '36', phase_spatial_script)
         run('37', phase_spatial_val, opts.seed)
+        spatial_psp_launches = run('38', phase_spatial_models, opts.seed)
+        run('39', phase_spatial_val_models, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -4509,6 +4639,10 @@ def main(argv=None):
     spatial_script_step['launches'] = spatial_script_launches
     spatial_visualize_step = per_step('spatial_visualize_gct')
     spatial_visualize_step['launches'] = spatial_visual_launches
+    # phase 38's PSPNet GCT under --spatial-train 2 (2+2 @513 in float32):
+    # rank 0's strips of the 513-row maps, launches over its 2 steps
+    spatial_psp_step = per_step('spatial_psp_gct')
+    spatial_psp_step['launches'] = spatial_psp_launches
     kernel = {
         'name': 'blur_band',
         'route': 'cuda',
@@ -4554,7 +4688,12 @@ def main(argv=None):
                'spatial_visualize_gct: the debug maps of that '
                'visualization (the whole batch, 2+2, on rank 0\'s strips), '
                '2x each call of path spatial_visualize_gct, launches of '
-               'the visualization on rank 0',
+               'the visualization on rank 0; spatial_psp_gct: a PSPNet GCT '
+               'step of phase 38 under --spatial-train 2 (2+2 @513) on rank '
+               '0, 2x each call of path spatial_psp_gct (its strips of the '
+               '513-row maps at k = 33, 65, 129; rank 1\'s in path '
+               'spatial_psp_gct_rank1), launches over its 2 steps on rank '
+               '0',
         'script_gct': script_step,
         'pspnet_gct': pspnet_step,
         'voc_gct': voc_step,
@@ -4565,9 +4704,10 @@ def main(argv=None):
         'spatial_gct': spatial_step,
         'spatial_script_gct': spatial_script_step,
         'spatial_visualize_gct': spatial_visualize_step,
+        'spatial_psp_gct': spatial_psp_step,
         'calls': rows,
     }
-    say('chip_smoke: all 37 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 39 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

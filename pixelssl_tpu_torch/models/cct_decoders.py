@@ -10,19 +10,30 @@ cutout erases a random box inside each of the two largest foreground
 components of the main prediction, the components labelled on the device
 (``ops/components.py``), where the reference walks OpenCV contours on the
 host.
+
+Inside a ``parallel.spatial.sharded`` block the latent is this rank's rows
+of a map whose global height the caller passes, and each draw this rank's
+part of the global draw: the per-sample norm and maximum reduce over the
+spatial group (``spatial.group_sum``, ``spatial.sample_max``), VAT's
+inner gradient runs the decoder's row exchanges backwards on every rank
+alike, and the guided cutout labels the components of the whole
+foreground mask, gathered on every rank (a component may cross a rank's
+rows any number of times), then keeps this rank's rows of its mask; the
+masking decoders resize the rank's own rows of the foreground.
 """
 
 import torch
 
 from ..ops.components import label_components, top_k_components
+from ..parallel import spatial
 from .layers import resize_nearest
 
 
 def l2_normalize_per_sample(d):
     """``d`` over its per-sample L2 norm plus 1e-8 (reference
     ssl_cct.py:578-582)."""
-    norm = torch.sqrt(torch.sum(torch.square(d), dim=tuple(range(1, d.dim())),
-                                keepdim=True))
+    norm = torch.sqrt(spatial.group_sum(torch.sum(
+        torch.square(d), dim=tuple(range(1, d.dim())), keepdim=True)))
     return d / (norm + 1e-8)
 
 
@@ -36,7 +47,9 @@ def vat_perturbation(dec, x, d, xi, eps, iterations=1):
     """VAT's adversarial perturbation of the latent ``x`` from the starting
     direction ``d`` (reference ssl_cct.py:555-576). The inner gradient is
     taken with respect to the perturbation only, on a graph from the
-    detached latent, so the decoder's parameters gather no gradient."""
+    detached latent, so the decoder's parameters gather no gradient. In a
+    spatial context the KL is this rank's share (its pixels over the
+    samples), whose gradient the decoder's row exchanges complete."""
     x_d = x.detach()
     with torch.no_grad():
         pred = torch.softmax(dec(x_d).float(), dim=1)
@@ -77,6 +90,15 @@ def _foreground_mask(main_pred):
     return main_pred.argmax(dim=1) > 0
 
 
+def _whole_foreground_mask(main_pred):
+    """``_foreground_mask`` of the whole map on every rank of the spatial
+    group (each rank's rows fetched, without gradient); of ``main_pred``
+    outside a context."""
+    with torch.no_grad():
+        mask = _foreground_mask(main_pred).to(torch.uint8)
+        return spatial.whole_rows(mask, dim=1).bool()
+
+
 def draw_cutout(generator, batch, n_components, device):
     """The cutout's uniforms: (rows, columns), each [B, k] (k = 1 for the
     union-bbox variant)."""
@@ -94,8 +116,10 @@ def guided_cutout_mask(main_pred, u_h, u_w, erase, resize, n_components=2):
     ``floor(bb * erase)`` of the component's bounding box a side, its start
     ``floor(u * (floor(bb * (1 - erase)) + 1))`` into the box, from the
     uniforms ``u_h``, ``u_w`` [B,k]. ``n_components=0``: one box in the
-    union of the foreground's bounding box."""
-    masks = _foreground_mask(main_pred)
+    union of the foreground's bounding box. In a spatial context
+    ``resize`` is the latent's global size, and the result this rank's rows
+    of the mask."""
+    masks = _whole_foreground_mask(main_pred)
     b, h, w = masks.shape
     device = masks.device
     rows = torch.arange(h, device=device, dtype=torch.float32).reshape(
@@ -132,15 +156,17 @@ def guided_cutout_mask(main_pred, u_h, u_w, erase, resize, n_components=2):
     inside = ((rows >= box(start_h)) & (rows < box(end_h)) &
               (cols >= box(start_w)) & (cols < box(end_w)) & box(present))
     mask_ones = (~inside.any(dim=1, keepdim=True)).float()
-    return resize_nearest(mask_ones, resize)
+    return resize_nearest(mask_ones, resize, whole=True)
 
 
-def guided_masking(x, main_pred, return_context):
+def guided_masking(x, main_pred, return_context, h=None):
     """Context masking (the foreground of the main prediction kept) or
     object masking (its background kept), the mask nearest-resized to the
-    latent (reference ssl_cct.py:675-690)."""
+    latent (reference ssl_cct.py:675-690); ``h``: the latent's global
+    height in a spatial context."""
     mask = resize_nearest(_foreground_mask(main_pred)[:, None].float(),
-                          x.shape[2:]).to(x.dtype)
+                          (x.shape[2] if h is None else h, x.shape[3]),
+                          spatial.global_height(main_pred)).to(x.dtype)
     return mask * x if return_context else (1.0 - mask) * x
 
 
@@ -155,7 +181,7 @@ def feature_dropout(x, u):
     """Zero the pixels whose mean over channels reaches ``u`` [B,1,1,1]
     times its per-sample maximum (reference ssl_cct.py:712-728)."""
     attention = x.float().mean(dim=1, keepdim=True)
-    max_val = attention.amax(dim=(1, 2, 3), keepdim=True)
+    max_val = spatial.sample_max(attention)
     return x * (attention < max_val * u).to(x.dtype)
 
 

@@ -20,11 +20,24 @@ NCHW.
   (an ``nn.Conv2d``, same parameters and names) and ``max_pool2d`` fetch
   the rows their output rows' windows read, zero- or -inf-filled outside
   the map, and run with padding 0 along H; a 1x1 stride-1 convolution
-  needs no rows of another rank. The ``align_corners=True``
-  ``resize_bilinear`` reads input rows ``floor/ceil(y * (h_in - 1) /
-  (h_out - 1))`` of the global heights. ``SyncBatchNorm`` with ``sync``
-  sums over every rank, which under ``--spatial-train`` is the grid.
-  Outside a context these are the plain functions.
+  needs no rows of another rank. ``Conv2d(same=True)`` pads as flax's
+  ``'SAME'`` (``total // 2`` before, the rest after), along H from the
+  global height. ``resize_bilinear`` (both conventions) and
+  ``resize_nearest`` fetch the input rows their output rows read; with
+  ``whole=True`` the input is a map every rank holds whole (PSP's pooled
+  bins, a gathered mask) and each rank computes its rows of the output
+  from it. ``adaptive_avg_pool`` sums each bin's part of the rank's rows
+  and the spatial group sums the parts (``spatial.group_sum``): every
+  rank holds the whole pooled map. ``pixel_shuffle`` fetches the input
+  rows of its output rows in ``row_range`` of the output height, so that
+  the output is dealt as every other map (a shuffle of each rank's own
+  rows would not be when the height does not divide). ``SyncBatchNorm``
+  with ``sync`` sums over every rank, which under ``--spatial-train`` is
+  the grid. Outside a context these are the plain functions.
+* ``resize_bilinear``'s row taps are PyTorch's float32 source indices
+  (``area_pixel_compute_source_index``: ``scale * (i + 0.5) - 0.5``
+  clamped at 0 without align_corners, ``i * (in - 1) / (out - 1)`` with
+  it), those of ``F.interpolate`` and of the JAX interpolation matrices.
 * ``resize_nearest``: source index ``i * in // out`` in integers, a gather;
   ``F.interpolate(mode='nearest')`` takes ``floor(i * (in / out))`` in
   floating point, which can round to another pixel.
@@ -131,31 +144,58 @@ class SyncBatchNorm(nn.BatchNorm2d):
                 self.bias[None, :, None, None]).to(x.dtype)
 
 
+def same_pads(size, kernel, stride, dilation=1):
+    """(before, after) of flax's ``'SAME'`` padding along an axis of
+    ``size``: ``ceil(size / stride)`` outputs, ``total // 2`` before."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + dilation * (kernel - 1) + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with a row-sharded form: ``forward(x, h)`` inside a
     ``spatial.sharded`` block takes this rank's rows of a map ``h`` rows
-    high and gives its rows of the output map (``out_height(h)`` rows)."""
+    high and gives its rows of the output map (``out_height(h)`` rows).
+    ``same=True`` (with ``padding=0``) pads each axis as flax's
+    ``'SAME'`` does, which at stride 2 is not symmetric."""
+
+    def __init__(self, *args, same=False, **kwargs):
+        super(Conv2d, self).__init__(*args, **kwargs)
+        self.same = same
+
+    def row_pads(self, h):
+        """(top, bottom) padding of a map ``h`` rows high."""
+        if self.same:
+            return same_pads(h, self.kernel_size[0], self.stride[0],
+                             self.dilation[0])
+        return self.padding[0], self.padding[0]
 
     def out_height(self, h):
         if h is None:
             return None
-        return spatial.conv_out(h, self.kernel_size[0], self.stride[0],
-                                self.padding[0], self.dilation[0])
+        top, bottom = self.row_pads(h)
+        return spatial.conv_out(h + top + bottom, self.kernel_size[0],
+                                self.stride[0], 0, self.dilation[0])
 
     def forward(self, x, h=None):
         rows = spatial.active()
-        (k, _), (s, sw), (p, pw), (d, dw) = (self.kernel_size, self.stride,
-                                             self.padding, self.dilation)
-        if rows is None or (k == 1 and s == 1 and p == 0):
+        (k, kw), (s, sw), (_, pw), (d, dw) = (self.kernel_size, self.stride,
+                                              self.padding, self.dilation)
+        if self.same:  # F.pad's order: W, then H
+            x = F.pad(x, same_pads(x.shape[3], kw, sw, dw) +
+                      (self.row_pads(x.shape[2]) if rows is None else ()))
+        if rows is None:
+            return super(Conv2d, self).forward(x)
+        top, _ = self.row_pads(h)
+        if k == 1 and s == 1 and top == 0:
             return super(Conv2d, self).forward(x)
         mesh = rows.mesh
         requests = spatial.window_rows(self.out_height(h), mesh.n_spatial,
-                                       s, p, d * (k - 1) + 1)
+                                       s, top, d * (k - 1) + 1)
         xr = spatial.fetch_rows(x, h, requests, mesh, spatial.ZERO)
         if xr.shape[2] == 0:
             return _no_rows(xr, self.out_channels,
-                            spatial.conv_out(x.shape[3], self.kernel_size[1],
-                                             sw, pw, dw),
+                            spatial.conv_out(x.shape[3], kw, sw, pw, dw),
                             [p for p in (self.weight, self.bias)
                              if p is not None])
         return F.conv2d(xr, self.weight, self.bias, (s, sw), (0, pw),
@@ -196,15 +236,15 @@ def pool_out_height(h, kernel_size, stride, padding=0):
                                                   padding)
 
 
-def resize_bilinear(x, size, align_corners=False, h=None):
+def resize_bilinear(x, size, align_corners=False, h=None, whole=False):
     """Bilinear resize of [N,C,H,W] to spatial ``size`` (h, w). Inside a
-    ``spatial.sharded`` block ``size`` is the global output size and ``h``
-    the global height of the input, of which ``x`` holds this rank's
-    rows (``align_corners=True`` only)."""
+    ``spatial.sharded`` block ``size`` is the global output size, and
+    ``x`` holds this rank's rows of a map ``h`` rows high or, with
+    ``whole``, every row of it; the output is this rank's rows."""
     size = tuple(int(s) for s in size)
     rows = spatial.active()
     if rows is not None:
-        return _resize_rows(x, size, h, align_corners, rows.mesh)
+        return _resize_rows(x, size, h, align_corners, rows.mesh, whole)
     if tuple(x.shape[2:]) == size:
         return x
     return F.interpolate(x, size=size, mode='bilinear',
@@ -212,75 +252,155 @@ def resize_bilinear(x, size, align_corners=False, h=None):
 
 
 @functools.lru_cache(maxsize=256)
-def _align_corners_taps(h_in, h_out):
-    """Per output row of an ``align_corners=True`` resize: the two input
-    rows it reads and the weight of the second, in float32 as PyTorch's
-    kernel computes them (``area_pixel_compute_scale``)."""
-    scale = (np.float32(h_in - 1) / np.float32(h_out - 1) if h_out > 1
-             else np.float32(0.0))
-    src = scale * np.arange(h_out, dtype=np.float32)
+def _linear_taps(h_in, h_out, align_corners):
+    """Per output row of a bilinear resize: the two input rows it reads
+    and the weight of the second, in float32 as PyTorch's kernel computes
+    them (``area_pixel_compute_scale`` / ``_source_index``)."""
+    out = np.arange(h_out, dtype=np.float32)
+    if align_corners:
+        scale = (np.float32(h_in - 1) / np.float32(h_out - 1) if h_out > 1
+                 else np.float32(0.0))
+        src = scale * out
+    else:
+        scale = np.float32(h_in) / np.float32(h_out)
+        src = np.maximum(scale * (out + np.float32(0.5)) - np.float32(0.5),
+                         np.float32(0.0))
     i0 = np.minimum(np.floor(src).astype(np.int64), h_in - 1)
     i1 = np.minimum(i0 + 1, h_in - 1)
     return i0, i1, (src - i0.astype(np.float32)).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=256)
-def _row_taps(h_in, h_out, o0, o1, device):
-    """``_align_corners_taps`` of output rows [o0, o1) on ``device``, the
-    row indices counted from the first row they read."""
-    i0, i1, lam = _align_corners_taps(h_in, h_out)
-    a = int(i0[o0])
+def _row_taps(h_in, h_out, align_corners, o0, o1, a, device):
+    """``_linear_taps`` of output rows [o0, o1) on ``device``, made once
+    (a captured step copies nothing from the host), the row indices
+    counted from row ``a``."""
+    i0, i1, lam = _linear_taps(h_in, h_out, align_corners)
     return (torch.from_numpy(i0[o0:o1] - a).to(device),
             torch.from_numpy(i1[o0:o1] - a).to(device),
             torch.from_numpy(lam[o0:o1]).to(device).reshape(1, 1, -1, 1))
 
 
-def _resize_rows(x, size, h, align_corners, mesh):
-    if not align_corners:
-        raise NotImplementedError(
-            'the row-sharded resize takes align_corners=True only (ROADMAP '
-            'A4c-3)')
-    h_out, w_out = size
-    if h == h_out and x.shape[3] == w_out:
-        return x
-    i0, i1, _ = _align_corners_taps(int(h), int(h_out))
+def _nearest_rows(h_in, h_out):
+    return np.arange(h_out, dtype=np.int64) * h_in // h_out
+
+
+def _source_rows(x, h, lo, hi, h_out, mesh, whole):
+    """The input rows that this rank's output rows of a resize to
+    ``h_out`` rows read, output row o reading rows ``lo[o]..hi[o]``: (the
+    rows [a, b) that hold them, fetched from their ranks or, with
+    ``whole``, cut from ``x``; a; this rank's output rows (o0, o1))."""
     requests = []
     for q in range(mesh.n_spatial):
         o0, o1 = spatial.row_range(h_out, mesh.n_spatial, q)
-        requests.append((int(i0[o0]), int(i1[o1 - 1]) + 1) if o1 > o0
+        requests.append((int(lo[o0]), int(hi[o1 - 1]) + 1) if o1 > o0
                         else (0, 0))
-    xr = spatial.fetch_rows(x, h, requests, mesh, spatial.ZERO)
-    o0, o1 = spatial.local_rows(h_out, mesh)
+    a, b = requests[mesh.spatial_rank]
+    if whole:
+        xr = x.narrow(2, a, b - a)
+    else:
+        xr = spatial.fetch_rows(x, h, tuple(requests), mesh, spatial.ZERO)
+    return xr, a, spatial.local_rows(h_out, mesh)
+
+
+def _resize_rows(x, size, h, align_corners, mesh, whole):
+    h_out, w_out = size
+    if whole:
+        h = x.shape[2]
+    elif h == h_out and x.shape[3] == w_out:
+        return x
+    i0, i1, lam = _linear_taps(int(h), int(h_out), bool(align_corners))
+    xr, a, (o0, o1) = _source_rows(x, h, i0, i1, h_out, mesh, whole)
     if o1 == o0:
         return _no_rows(xr, x.shape[1], w_out)
-    idx0, idx1, weight = _row_taps(int(h), int(h_out), o0, o1, x.device)
+    idx0, idx1, weight = _row_taps(int(h), int(h_out), bool(align_corners),
+                                   o0, o1, a, x.device)
     y = xr.index_select(2, idx0) * (1.0 - weight) + \
         xr.index_select(2, idx1) * weight
     if x.shape[3] != w_out:
+        # the rows stay where they are (a scale of 1 in either convention)
         y = F.interpolate(y, size=(o1 - o0, w_out), mode='bilinear',
-                          align_corners=True)
-    return y
+                          align_corners=align_corners)
+    return y.to(x.dtype)
 
 
-def resize_nearest(x, size):
+def resize_nearest(x, size, h=None, whole=False):
     """Nearest resize of [N,C,H,W] to ``size`` (h, w): source index
-    ``i * in // out`` along each axis (JAX layers.py:160-166)."""
-    (h_in, w_in), (h_out, w_out) = x.shape[2:], (int(s) for s in size)
-    hi = torch.arange(h_out, device=x.device) * h_in // h_out
+    ``i * in // out`` along each axis (JAX layers.py:160-166). Inside a
+    ``spatial.sharded`` block as ``resize_bilinear``."""
+    (h_out, w_out) = (int(s) for s in size)
+    w_in = x.shape[3]
     wi = torch.arange(w_out, device=x.device) * w_in // w_out
-    return x.index_select(2, hi).index_select(3, wi)
+    rows = spatial.active()
+    if rows is None:
+        h_in = x.shape[2]
+        hi = torch.arange(h_out, device=x.device) * h_in // h_out
+        return x.index_select(2, hi).index_select(3, wi)
+    h = x.shape[2] if whole else int(h)
+    src = _nearest_rows(h, h_out)
+    xr, a, (o0, o1) = _source_rows(x, h, src, src, h_out, rows.mesh, whole)
+    if o1 == o0:
+        return _no_rows(xr, x.shape[1], w_out)
+    index = spatial._index(tuple(int(i) for i in src[o0:o1] - a), x.device)
+    return xr.index_select(2, index).index_select(3, wi)
 
 
-def adaptive_avg_pool(x, output_size):
+@functools.lru_cache(maxsize=256)
+def _bin_matrix(size, bins, start, stop, device):
+    """[bins, stop - start] float32 on ``device``, made once: row i
+    averages the rows of bin i (``[floor(i * size / bins), ceil((i + 1) *
+    size / bins))`` of ``size``) that lie in [start, stop), each weighed by
+    one over the bin's whole count (JAX ``_adaptive_pool_matrix``)."""
+    m = np.zeros((bins, stop - start), np.float32)
+    for i in range(bins):
+        lo, hi = i * size // bins, -(-((i + 1) * size) // bins)
+        a, b = max(lo, start), min(hi, stop)
+        if b > a:
+            m[i, a - start:b - start] = 1.0 / (hi - lo)
+    return torch.from_numpy(m).to(device)
+
+
+def adaptive_avg_pool(x, output_size, h=None):
     """``nn.AdaptiveAvgPool2d`` of [N,C,H,W] in float32, back to the input's
-    dtype (JAX layers.py:169-192)."""
-    return F.adaptive_avg_pool2d(x.float(), output_size).to(x.dtype)
+    dtype (JAX layers.py:169-192). Inside a ``spatial.sharded`` block ``x``
+    holds this rank's rows of a map ``h`` rows high, and every rank gets
+    the whole pooled map: the parts of each bin in each rank's rows,
+    summed over the spatial group; the gradient of each rank's rows comes
+    from every rank's use of the bins."""
+    rows = spatial.active()
+    if rows is None:
+        return F.adaptive_avg_pool2d(x.float(), output_size).to(x.dtype)
+    bh, bw = ((output_size, output_size) if isinstance(output_size, int)
+              else output_size)
+    r0, r1 = spatial.local_rows(h, rows.mesh)
+    mh = _bin_matrix(int(h), bh, r0, r1, x.device)
+    mw = _bin_matrix(x.shape[3], bw, 0, x.shape[3], x.device)
+    with torch.autocast(x.device.type, enabled=False):
+        parts = torch.matmul(torch.matmul(mh, x.float()), mw.t())
+    return spatial.group_sum(parts).to(x.dtype)
 
 
-def pixel_shuffle(x, scale):
+def pixel_shuffle(x, scale, h=None):
     """[N,C*r*r,H,W] -> [N,C,H*r,W*r], ``out[n, c, h*r+i, w*r+j] =
-    in[n, c*r*r + i*r + j, h, w]`` (JAX layers.py:203-214)."""
-    return F.pixel_shuffle(x, scale)
+    in[n, c*r*r + i*r + j, h, w]`` (JAX layers.py:203-214). Inside a
+    ``spatial.sharded`` block ``x`` holds this rank's rows of a map ``h``
+    rows high, and the output is its rows ``row_range(h * r)``: the input
+    rows they come from, ``[o0 // r, ceil(o1 / r))``, are fetched
+    first."""
+    rows = spatial.active()
+    if rows is None:
+        return F.pixel_shuffle(x, scale)
+    mesh, r = rows.mesh, int(scale)
+    h_out = int(h) * r
+    requests = []
+    for q in range(mesh.n_spatial):
+        o0, o1 = spatial.row_range(h_out, mesh.n_spatial, q)
+        requests.append((o0 // r, -(-o1 // r)) if o1 > o0 else (0, 0))
+    xr = spatial.fetch_rows(x, h, tuple(requests), mesh, spatial.ZERO)
+    o0, o1 = spatial.local_rows(h_out, mesh)
+    if o1 == o0:
+        return _no_rows(xr, x.shape[1] // (r * r), x.shape[3] * r)
+    return F.pixel_shuffle(xr, r).narrow(2, o0 - r * (o0 // r), o1 - o0)
 
 
 def kaiming_normal_(weight, generator=None):

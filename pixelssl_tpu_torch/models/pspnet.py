@@ -10,6 +10,15 @@ x2 blocks with ICNR init (_pspnet.py:15-54); the logits are resized to the
 input in float32 with ``align_corners=True`` (_pspnet.py:127). With
 ``bf16`` the convolutions run under bf16 autocast on the card, as
 DeepLab-v2's do.
+
+Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
+of images of the context's height, and the global height threads through
+the model: the backbone and the bottleneck's 3x3 convolution run
+row-sharded, each pyramid stage pools its bins over the rows of every
+rank of the spatial group (every rank then holds the whole bins, whose
+BatchNorm counts them on spatial rank 0: ``spatial.whole_weight``) and
+resizes them to this rank's rows, and each x2 shuffle of the decoder
+fetches the rows of its output rows (``models/layers.py``).
 """
 
 import contextlib
@@ -19,7 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (SyncBatchNorm, adaptive_avg_pool, bf16_autocast,
+from ..parallel import spatial
+from .layers import (Conv2d, SyncBatchNorm, adaptive_avg_pool, bf16_autocast,
                      icnr_init_, kaiming_normal_, pixel_shuffle,
                      resize_bilinear)
 from .resnet import build_backbone
@@ -39,9 +49,12 @@ class PSPStage(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
         self.bn = SyncBatchNorm(out_channels)
 
-    def forward(self, x):
-        y = F.relu(self.bn(self.conv(adaptive_avg_pool(x, self.bins))))
-        return resize_bilinear(y, x.shape[2:], align_corners=False)
+    def forward(self, x, h=None):
+        h = x.shape[2] if h is None else h
+        pooled = self.conv(adaptive_avg_pool(x, self.bins, h))
+        y = F.relu(self.bn(pooled, spatial.whole_weight(pooled)))
+        return resize_bilinear(y, (h, x.shape[3]), align_corners=False,
+                               whole=True)
 
 
 class PSPModule(nn.Module):
@@ -52,7 +65,7 @@ class PSPModule(nn.Module):
         out_channels = in_channels // len(bin_sizes)
         self.stages = nn.ModuleList(PSPStage(in_channels, out_channels, b)
                                     for b in bin_sizes)
-        self.bottleneck_conv = nn.Conv2d(
+        self.bottleneck_conv = Conv2d(
             in_channels + out_channels * len(bin_sizes), out_channels, 3,
             padding=1, bias=False)
         self.bottleneck_bn = SyncBatchNorm(out_channels)
@@ -64,9 +77,9 @@ class PSPModule(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 
-    def forward(self, x):
-        y = torch.cat([x] + [stage(x) for stage in self.stages], dim=1)
-        return F.relu(self.bottleneck_bn(self.bottleneck_conv(y)))
+    def forward(self, x, h=None):
+        y = torch.cat([x] + [stage(x, h) for stage in self.stages], dim=1)
+        return F.relu(self.bottleneck_bn(self.bottleneck_conv(y, h)))
 
 
 class PixelShuffleBlock(nn.Module):
@@ -84,8 +97,8 @@ class PixelShuffleBlock(nn.Module):
         with torch.no_grad():
             self.conv.bias.zero_()
 
-    def forward(self, x):
-        return pixel_shuffle(F.relu(self.conv(x)), self.scale)
+    def forward(self, x, h=None):
+        return pixel_shuffle(F.relu(self.conv(x)), self.scale, h)
 
 
 class UpsampleDecoder(nn.Module):
@@ -108,11 +121,16 @@ class UpsampleDecoder(nn.Module):
         for block in self.shuffle:
             block.init_weights(generator)
 
-    def forward(self, x):
+    def out_height(self, h):
+        return h * 2 ** len(self.shuffle)
+
+    def forward(self, x, h=None):
+        """``h``: the global height of ``x`` inside a spatial context."""
         with (bf16_autocast(x) if self.bf16 else contextlib.nullcontext()):
             x = self.conv1x1(x)
             for block in self.shuffle:
-                x = block(x)
+                x = block(x, h)
+                h = None if h is None else h * block.scale
         return x
 
 
@@ -134,9 +152,12 @@ class PSPNet(nn.Module):
         self.decoder.init_weights(generator)
 
     def forward(self, x):
+        h = spatial.global_height(x)
+        h16 = self.backbone.out_height(h)
         with bf16_autocast(x, self.bf16):
-            px = self.psp(self.backbone(x))
-            logits = self.decoder(px)
-        logits = resize_bilinear(logits.float(), x.shape[2:],
-                                 align_corners=True)
+            px = self.psp(self.backbone(x, h), h16)
+            logits = self.decoder(px, h16)
+        logits = resize_bilinear(logits.float(), (h, x.shape[3]),
+                                 align_corners=True,
+                                 h=self.decoder.out_height(h16))
         return logits, px

@@ -9,7 +9,8 @@ lr rule never matches it. With ``bf16`` the convolutions and the head run
 under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
 
 Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
-of maps of the context's height: the convolutions run row-sharded
+of maps of the height that the caller passes (the context's by default;
+``sreg``'s latent is a quarter of it): the convolutions run row-sharded
 (``models/layers.Conv2d``), BatchNorm sums its statistics over the grid
 (``sync``), and the spatial mean is summed over the spatial group
 (``spatial.channel_mean``), so that every rank of it gives the same
@@ -43,9 +44,11 @@ class RotationClassifier(nn.Module):
         for bn in (self.bn1, self.bn2):
             bn.reset_parameters()
 
-    def forward(self, x):
-        """[N,C,H,W] -> rotation logits [N,4], float32."""
-        h = spatial.global_height(x)
+    def forward(self, x, h=None):
+        """[N,C,H,W] -> rotation logits [N,4], float32; ``h``: the global
+        height of ``x`` inside a spatial context (by default the
+        context's)."""
+        h = spatial.global_height(x) if h is None else h
         h1 = self.conv1.out_height(h)
         with bf16_autocast(x, self.bf16):
             x = leaky_relu_02(self.bn1(self.conv1(x, h)))

@@ -14,6 +14,11 @@ segment), the key ``(n - seg) * (H*W + 1) + label`` is smaller in every
 later segment than in any earlier one, so its running minimum is the
 minimum of the current segment; the label is decoded by subtracting the
 segment's part again. No host round trip.
+
+The scans run along H, and a component may cross a rank's rows any number
+of times: under ``--spatial-train`` CCT labels the whole mask, gathered on
+every rank (``models/cct_decoders.py``), so that the labels are one
+process's flat indices.
 """
 
 import torch

@@ -3,8 +3,8 @@
 and the collectives of a step), ``multihost`` (the process group and each
 rank's slice of the input) and ``spatial`` (``--spatial-train``,
 ``--spatial-val``: rows of each image over ranks, with hand-written halo
-exchanges; SupOnly, MT, AdvSSL, S4L, GCT and CutMix on DeepLab-v2, and
-``--visualize``, ROADMAP A4c-1 and A4c-2)."""
+exchanges; every algorithm and model of the JAX package, and
+``--visualize``)."""
 
 from .mesh import (Mesh, make_mesh, all_sum, psum_if_parallel, fold_rng,
                    all_reduce_grads, broadcast_module, barrier,

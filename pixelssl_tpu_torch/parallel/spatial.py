@@ -28,9 +28,15 @@ partitioner, so the port does it by hand:
   every rank of the group needs (S4L's rotation head) is summed over the
   group (``channel_mean``), and a vector every rank of the group holds
   whole counts once, on spatial rank 0 (``whole_share``);
-* a whole map, where rows must become columns (S4L's rotations) or be
-  written (``--visualize``, on spatial rank 0), is every rank's rows
-  fetched (``whole_rows``).
+* a whole map, where rows must become columns (S4L's rotations), where a
+  scan runs along H (CCT's connected components) or where it is written
+  (``--visualize``, on spatial rank 0), is every rank's rows fetched
+  (``whole_rows``); a map every rank holds whole gives each its own rows
+  (``own_rows``);
+* a sum whose parts lie on the ranks of a spatial group (PSP's pooled
+  bins, a per-sample norm, ``sreg``'s valid-pixel counts) is summed over
+  the group (``group_sum``); a BatchNorm over a map that every rank of the
+  group holds whole counts it on spatial rank 0 only (``whole_weight``).
 
 Transport: with NCCL a ``batch_isend_irecv`` of the rows on the card (a
 CUDA graph captures it); with gloo, whose send and receive take CPU tensors
@@ -53,32 +59,11 @@ import torch.distributed as dist
 from . import mesh as mesh_lib
 from . import multihost
 
-# what ``make_mesh_2d`` refuses where the port has not got it yet: the
-# algorithm, model or task, and the ROADMAP item that brings it
-_NOT_YET = {'ssl_cct': 'A4c-3', 'pspnet': 'A4c-3', 'unet_lite': 'A4c-3',
-            'sreg': 'A4c-3'}
-
 # the algorithms that pair unlabeled sample i with sample i + U/2 of the
 # step's unlabeled block (CutMix's mixing, JAX ssl_cutmix.py:115-133, whose
 # GSPMD step sees the global block): under ``--spatial-train`` each data
 # coordinate holds its share of each half (``local_samples``)
 PAIRED = ('ssl_cutmix',)
-
-
-def unsupported(args, task):
-    """Why ``args`` of ``task`` cannot run spatially partitioned yet (an
-    error naming the ROADMAP item), or None: SupOnly, MT, AdvSSL, S4L, GCT
-    and CutMix on DeepLab-v2 for the ``sseg`` task run, with or without
-    ``--visualize``."""
-    flag = ('--spatial-train' if int(getattr(args, 'spatial_train', 0) or 0)
-            > 1 else '--spatial-val')
-    names = ([task, args.ssl_algorithm] +
-             sorted(set((getattr(args, 'models', None) or {}).values())))
-    for name in names:
-        if name in _NOT_YET:
-            return '{0} with {1} is not ported to pixelssl_tpu_torch yet ' \
-                '(ROADMAP {2})'.format(flag, name, _NOT_YET[name])
-    return None
 
 
 def pairs_unlabeled(args):
@@ -225,18 +210,27 @@ def sample_mean(x, h_dim=2):
     return x.sum(dim=dims) / count
 
 
+def group_sum(x):
+    """``x`` summed over the ranks of the spatial group inside a context
+    (``all_sum``: differentiable, the gradient of each rank's part the
+    group's summed gradient); ``x`` itself outside one."""
+    if _active is None:
+        return x
+    mesh = _active.mesh
+    if not mesh.distributed or mesh.n_spatial == 1:
+        return x
+    return mesh_lib.all_sum(x, mesh, mesh.spatial_group)
+
+
 def channel_mean(x, h):
     """Per-sample, per-channel mean over H x W of a [N,C,H,W] map, [N,C];
     inside a context that of the map ``h`` rows high whose rows the spatial
     group holds, the same on every rank of it: the local sums in float32
-    summed over the group (``all_sum``, whose backward sums the ranks'
-    gradients, so that each rank's rows get the whole gradient)."""
+    summed over the group (``group_sum``, so that each rank's rows get the
+    whole gradient)."""
     if _active is None:
         return x.mean(dim=(2, 3))
-    mesh = _active.mesh
-    total = x.float().sum(dim=(2, 3))
-    if mesh.distributed and mesh.n_spatial > 1:
-        total = mesh_lib.all_sum(total, mesh, mesh.spatial_group)
+    total = group_sum(x.float().sum(dim=(2, 3)))
     return (total / (int(h) * x.shape[3])).to(x.dtype)
 
 
@@ -273,6 +267,31 @@ def _sample_extremum(x, op):
     local = local.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(local, op=op, group=_active.mesh.spatial_group)
     return local
+
+
+def whole_weight(x):
+    """The ``sample_weight`` of a BatchNorm in training over a map that
+    every rank of the spatial group holds whole (PSP's pooled bins): 1 a
+    sample on spatial rank 0 and 0 on the others, so that the grid's
+    ``(sum, ssum, count)`` count each sample once, as one process counts
+    it (the unbiased running variance with them). Every rank still
+    normalises its copy, and the gradients that the statistics pass back
+    reach the copy of rank 0 alone, which makes their sum over the group
+    one process's. None outside a context."""
+    if _active is None or _active.mesh.n_spatial == 1:
+        return None
+    return torch.full((x.shape[0],), 1.0 if _active.mesh.spatial_rank == 0
+                      else 0.0, dtype=torch.float32, device=x.device)
+
+
+def own_rows(x, h, dim=2):
+    """This rank's rows along ``dim`` of a map ``h`` rows high that every
+    rank of the spatial group holds whole; ``x`` itself outside a
+    context."""
+    if _active is None:
+        return x
+    r0, r1 = local_rows(h, _active.mesh)
+    return x.narrow(dim, r0, r1 - r0)
 
 
 def sample_max(x):

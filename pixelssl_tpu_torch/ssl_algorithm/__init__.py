@@ -54,18 +54,11 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
     them (``parallel.make_mesh``), as the JAX build divides by its mesh;
     with ``--spatial-train N`` each data coordinate of the (W/N x N) grid
     (``parallel.make_mesh_2d``, unless ``mesh`` is given) on 1/(W/N) of
-    them, and each rank on its rows; an algorithm, model or task that does
-    not run so yet (CCT, PSPNet, ``sreg``: ROADMAP A4c-3) is refused."""
+    them, and each rank on its rows."""
     from .. import parallel
     from ..nn import lrer as nnlrer
     from ..nn import optimizer as nnoptimizer
     from ..utils import logger
-
-    n_spatial = int(getattr(args, 'spatial_train', 0) or 0)
-    why = (parallel.spatial.unsupported(args, getattr(args, 'task', '') or
-                                        'sseg') if n_spatial > 1 else None)
-    if why is not None:
-        logger.log_err(why)
 
     model_dict, criterion_dict, optimizer_dict, lrer_dict = {}, {}, {}, {}
     for cname in args.models.keys():
@@ -84,6 +77,7 @@ def build_algorithm(args, model, criterion, func, device, iters_per_epoch,
 
     if mesh is None:
         mesh = parallel.make_mesh(device)
+        n_spatial = int(getattr(args, 'spatial_train', 0) or 0)
         if n_spatial > 1:
             mesh = parallel.make_mesh_2d(n_spatial, mesh)
     lbs, ubs = args.labeled_batch_size, args.unlabeled_batch_size

@@ -25,6 +25,11 @@ pixelssl/ssl_algorithm/ssl_cct.py).
 
 The decoders' draws come from ``_draw_decoder_noise(step, latent_shape)``,
 which the tests replace on the instance to hand over the JAX package's.
+
+Under ``--spatial-train`` the decoders run row-sharded on the latent's
+global height (``map_height``), the draws are one draw at the global
+latent's shape of which the rank keeps its samples and rows
+(``_local_draws``), and the MSEs are shares (``spatial.sample_mean``).
 """
 
 import torch
@@ -34,6 +39,7 @@ from ..models import cct_decoders as cct
 from ..models.layers import resize_bilinear
 from ..models.pspnet import UpsampleDecoder
 from ..nn.func import split_tensor_tuple
+from ..parallel import spatial
 from ..utils import cmd, logger
 from ..utils.constant import CLASSIFICATION
 from .ssl_base import SSLBase, TaskContext
@@ -114,29 +120,34 @@ class WrappedCCTModule(nn.Module):
         return groups
 
 
-def apply_decoder(spec, dec, latent, main_pred, draw):
+def apply_decoder(spec, dec, latent, main_pred, draw, h=None):
     """One perturbation of the latent, then the decoder (reference
-    ssl_cct.py:463-470)."""
+    ssl_cct.py:463-470); ``h``: the latent's global height in a spatial
+    context."""
     family, cfg = spec
+    h = latent.shape[2] if h is None else h
+
+    def decode(x):
+        return dec(x, h)
     if family == 'vat':
-        return dec(latent + cct.vat_perturbation(dec, latent, draw, cfg['xi'],
-                                                 cfg['eps']))
+        return decode(latent + cct.vat_perturbation(
+            decode, latent, draw, cfg['xi'], cfg['eps']))
     if family == 'drop':
         perturb = (cct.spatial_dropout if cfg['spatial']
                    else cct.element_dropout)
-        return dec(perturb(latent, draw, cfg['rate']))
+        return decode(perturb(latent, draw, cfg['rate']))
     if family == 'cut':
         mask = cct.guided_cutout_mask(main_pred, draw[0], draw[1],
-                                      cfg['erase'], latent.shape[2:],
+                                      cfg['erase'], (h, latent.shape[3]),
                                       n_components=cfg['components'])
-        return dec(latent * mask.to(latent.dtype))
+        return decode(latent * mask.to(latent.dtype))
     if family in ('context', 'object'):
-        return dec(cct.guided_masking(latent, main_pred,
-                                      family == 'context'))
+        return decode(cct.guided_masking(latent, main_pred,
+                                         family == 'context', h))
     if family == 'fdrop':
-        return dec(cct.feature_dropout(latent, draw))
+        return decode(cct.feature_dropout(latent, draw))
     if family == 'fnoise':
-        return dec(cct.feature_noise(latent, draw))
+        return decode(cct.feature_noise(latent, draw))
     raise ValueError('unknown decoder family {0}'.format(family))
 
 
@@ -215,6 +226,31 @@ class SSLCCT(SSLBase):
         return draw_decoder_noise(self.specs, self._step_rng(step),
                                   latent_shape, self.device)
 
+    def _local_draws(self, draws, h):
+        """Under ``--spatial-train``, this rank's part of each decoder's
+        draw at the global latent's shape (``h`` rows): the unlabeled
+        samples of its data coordinate and, where the draw is a map, its
+        rows (slices: a captured step copies nothing from the host); the
+        draws themselves otherwise."""
+        if not self.mesh.spatial:
+            return draws
+        ubs = self.ctx.ubs
+        s0 = self.mesh.data_rank * ubs
+        r0, r1 = spatial.local_rows(h, self.mesh)
+        out = []
+        for (family, cfg), draw in zip(self.specs, draws):
+            if family == 'cut':
+                draw = tuple(u[s0:s0 + ubs] for u in draw)
+            elif family == 'fnoise':
+                draw = draw[:, r0:r1]
+            elif family == 'vat' or (family == 'drop' and
+                                     not cfg['spatial']):
+                draw = draw[s0:s0 + ubs, :, r0:r1]
+            elif draw is not None:  # [B,C,1,1] or [B,1,1,1] a sample
+                draw = draw[s0:s0 + ubs]
+            out.append(draw)
+        return out
+
     def _step_fn(self, batch):
         args = self.args
         ctx = self.ctx
@@ -234,17 +270,23 @@ class SSLCCT(SSLBase):
             latent = ul_resulter['sslcct_ad_inp']
             main_pred = ul_resulter['pred'][0].detach()
             ad_gt = ul_resulter['activated_pred'][0].detach().float()
-            draws = self._draw_decoder_noise(self.state.step,
-                                             tuple(latent.shape))
-            ad_preds = [
-                resize_bilinear(apply_decoder(
-                    spec, self.model.ads['ad_{0}'.format(i)], latent,
-                    main_pred, draw).float(), ad_gt.shape[2:],
-                    align_corners=False)
-                for i, (spec, draw) in enumerate(zip(self.specs, draws))]
+            height = spatial.global_height(ad_gt)
+            h = self.model.main.map_height('sslcct_ad_inp', height)
+            shape = tuple(latent.shape)
+            if self.mesh.spatial:  # the global unlabeled batch and latent
+                shape = (ubs * self.mesh.data_size, shape[1], h, shape[3])
+            draws = self._local_draws(
+                self._draw_decoder_noise(self.state.step, shape), h)
+            ad_preds = []
+            for i, (spec, draw) in enumerate(zip(self.specs, draws)):
+                dec = self.model.ads['ad_{0}'.format(i)]
+                ad_preds.append(resize_bilinear(
+                    apply_decoder(spec, dec, latent, main_pred, draw,
+                                  h).float(), (height, ad_gt.shape[3]),
+                    align_corners=False, h=dec.out_height(h)))
             activated = ctx.task_func.sslcct_activate_ad_preds(ad_preds)
-            mses = [self._global_mean(torch.square(a - ad_gt).mean(
-                dim=(1, 2, 3))) for a in activated]
+            mses = [self._global_mean(spatial.sample_mean(
+                torch.square(a - ad_gt))) for a in activated]
             cons_loss = self._rampup(args.cons_rampup_epochs,
                                      args.cons_scale) * (sum(mses) / len(mses))
 

@@ -78,7 +78,10 @@ class WrappedS4LModule(nn.Module):
         if 'ssls4l_rc_inp' not in resulter:
             raise ValueError("ssl_s4l requires resulter key 'ssls4l_rc_inp'")
         resulter = dict(resulter)
-        resulter['rotation'] = self.rc(resulter['ssls4l_rc_inp'])
+        resulter['rotation'] = self.rc(
+            resulter['ssls4l_rc_inp'],
+            self.task.map_height('ssls4l_rc_inp',
+                                 spatial.global_height(inp[0])))
         return resulter
 
     def param_groups(self):
@@ -107,11 +110,7 @@ def rotate_rows(x, angles, h_dim):
     rank's rows of the result are kept."""
     out = rotate_batch(spatial.whole_rows(x, h_dim), angles,
                        (h_dim, h_dim + 1))
-    rows = spatial.active()
-    if rows is None:
-        return out
-    r0, r1 = spatial.local_rows(rows.height, rows.mesh)
-    return out.narrow(h_dim, r0, r1 - r0)
+    return spatial.own_rows(out, spatial.global_height(x, h_dim), h_dim)
 
 
 class SSLS4L(SSLBase):

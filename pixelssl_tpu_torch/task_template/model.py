@@ -40,6 +40,13 @@ class TaskModel(nn.Module):
         return convert.load_pretrained_backbone(
             self, convert.load_torch_state_dict(path))
 
+    def map_height(self, key, h):
+        """The global height of the resulter's map ``key`` for inputs ``h``
+        rows high (``parallel.spatial``: the row-sharded layers that read
+        it need it). Default: the input's; task models whose latent is
+        smaller override it."""
+        return h
+
     def lr_rule(self, name):
         """(the first rule's substring that ``name`` holds, its
         multiplier), or (None, 1.0)."""

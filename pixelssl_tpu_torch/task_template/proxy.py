@@ -27,11 +27,10 @@ its data coordinate and keeps its rows of them on the host before the
 copy, and validation scores whole samples in batches of the data axis.
 ``--spatial-val`` validates one sample at a time, padded to the bucket and
 its H to a multiple of the ranks, its rows over every rank
-(``_ValLoader``). Both take SupOnly, MT, AdvSSL, S4L, GCT and CutMix on
-DeepLab-v2, with ``--visualize`` (rank 0 writes the PNGs of the rows its
-spatial group gathers); CCT, PSPNet and the ``sreg`` task stop with the
-ROADMAP item that brings them (``parallel.spatial.unsupported``: A4c-3),
-as do the two flags together. ``--steps-per-dispatch``
+(``_ValLoader``). Both take every algorithm on DeepLab-v2 and PSPNet and
+the ``sreg`` task, with ``--visualize`` (rank 0 writes the PNGs of the
+rows its spatial group gathers); the two flags together stop, as
+``--spatial-train`` without ``--distributed`` does. ``--steps-per-dispatch``
 shapes the algorithm's loop (``SSLBase.train``: chunks of a dispatch),
 ``--eager-ingest`` the train loader (``nn.loader``: the copy on a side
 stream); ``--profile-dir`` and ``--profile-steps`` the loop's profiler
@@ -164,12 +163,7 @@ class TaskProxy(object):
 
     def _check_spatial(self, args):
         """The refusals of ``--spatial-train`` and ``--spatial-val`` (JAX
-        proxy.py:160-174, and what the port does not run yet: A4c-3's
-        CCT, PSPNet and ``sreg``), before the process group forms."""
-        if args.spatial_train > 1 or args.spatial_val:
-            why = parallel.spatial.unsupported(args, self.NAME)
-            if why is not None:
-                logger.log_err(why)
+        proxy.py:160-174), before the process group forms."""
         if args.spatial_train > 1:
             if args.spatial_val:
                 logger.log_err('--spatial-train and --spatial-val are '

@@ -2,10 +2,15 @@
 ``pixelssl_tpu/tasks/sreg/criterion.py``): per sample, the mean squared
 error of ``sigmoid(pred)`` against the GT over the pixels whose GT is not
 ``--ignore-index`` (255.0, the validation loader's padding), in float32.
+Inside a ``parallel.spatial.sharded`` block each rank gives its share of
+it: its rows' squared errors over the sample's valid pixels on every rank
+of the spatial group (``spatial.group_sum``), whose sum over the group is
+the sample's MSE.
 """
 
 import torch
 
+from ...parallel import spatial
 from ...task_template import criterion_template
 from ...utils import logger
 
@@ -20,7 +25,7 @@ def mse_per_sample(pred, gt, ignore_index):
     gt = gt.float()
     valid = (gt != ignore_index).float()
     se = torch.square(pred - gt) * valid
-    denom = torch.clamp(valid.sum(dim=(1, 2, 3)), min=1.0)
+    denom = torch.clamp(spatial.group_sum(valid.sum(dim=(1, 2, 3))), min=1.0)
     return se.sum(dim=(1, 2, 3)) / denom
 
 

@@ -10,6 +10,13 @@ stride 2 on an even map one row and column after, none before. With
 ``bf16`` the stages run under bf16 autocast on the card; the resizes and
 the head stay float32.
 
+Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
+of maps of the context's height: the 3x3 convolutions run row-sharded
+(``models/layers.Conv2d``, the stride-2 ones with ``'SAME'``'s padding
+taken from the global height), the resizes give this rank's rows, and
+the BatchNorms sum their statistics over the grid, as the JAX model's
+plain reductions over the global batch under ``--spatial-train``.
+
 Resulter keys: ``pred`` (the raw one-channel map, float32),
 ``activated_pred`` (its sigmoid) and ``ssls4l_rc_inp`` (the latent, the
 input of S4L's rotation head). The head trains at 10x the lr. Module
@@ -24,7 +31,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...models.layers import SyncBatchNorm, bf16_autocast, resize_bilinear
+from ...models.layers import (Conv2d, SyncBatchNorm, bf16_autocast,
+                              resize_bilinear)
+from ...parallel import spatial
 from ...task_template import model_template
 from ...utils import cmd
 
@@ -54,20 +63,16 @@ def _lecun_truncated_normal_(weight, generator=None):
 class ConvBNRelu(nn.Module):
     def __init__(self, in_channels, out_channels, stride=1):
         super(ConvBNRelu, self).__init__()
-        self.stride = stride
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=stride,
-                              padding=1 if stride == 1 else 0, bias=False)
+        self.conv = Conv2d(in_channels, out_channels, 3, stride=stride,
+                           padding=1 if stride == 1 else 0, bias=False,
+                           same=stride != 1)
         self.bn = SyncBatchNorm(out_channels)
 
-    def forward(self, x):
-        if self.stride != 1:
-            pads = []
-            for size in (x.shape[3], x.shape[2]):  # F.pad's order: W, H
-                out = -(-size // self.stride)
-                total = max((out - 1) * self.stride + 3 - size, 0)
-                pads += [total // 2, total - total // 2]
-            x = F.pad(x, pads)
-        return F.relu(self.bn(self.conv(x)))
+    def out_height(self, h):
+        return self.conv.out_height(h)
+
+    def forward(self, x, h=None):
+        return F.relu(self.bn(self.conv(x, h)))
 
 
 class UNetLite(nn.Module):
@@ -95,18 +100,24 @@ class UNetLite(nn.Module):
     def _amp(self, x):
         return bf16_autocast(x, self.bf16)
 
+    def latent_height(self, h):
+        return self.blocks[2].out_height(self.blocks[1].out_height(h))
+
     def forward(self, x):
         b = self.blocks
+        h = spatial.global_height(x)
+        h2 = b[1].out_height(h)
+        h4 = b[2].out_height(h2)
         with self._amp(x):
-            e1 = b[0](x)
-            e2 = b[1](e1)
-            latent = b[3](b[2](e2))
-        d2 = resize_bilinear(latent.float(), e2.shape[2:])
+            e1 = b[0](x, h)
+            e2 = b[1](e1, h)
+            latent = b[3](b[2](e2, h2), h4)
+        d2 = resize_bilinear(latent.float(), (h2, e2.shape[3]), h=h4)
         with self._amp(x):
-            d2 = b[4](torch.cat([d2.to(e2.dtype), e2], dim=1))
-        d1 = resize_bilinear(d2.float(), e1.shape[2:])
+            d2 = b[4](torch.cat([d2.to(e2.dtype), e2], dim=1), h2)
+        d1 = resize_bilinear(d2.float(), (h, e1.shape[3]), h=h2)
         with self._amp(x):
-            d1 = b[5](torch.cat([d1.to(e1.dtype), e1], dim=1))
+            d1 = b[5](torch.cat([d1.to(e1.dtype), e1], dim=1), h)
         return self.head(d1.float()), latent
 
 
@@ -117,6 +128,10 @@ class UNetLiteModel(model_template.TaskModel):
         super(UNetLiteModel, self).__init__(args)
         self.net = UNetLite(base=args.base_channels,
                             bf16=getattr(args, 'bf16', True))
+
+    def map_height(self, key, h):
+        """The latent (S4L's input) is a quarter of the input's height."""
+        return self.net.latent_height(h) if key == 'ssls4l_rc_inp' else h
 
     def load_pretrained(self, path):
         from ...utils import logger

@@ -86,6 +86,12 @@ class _SsegModel(model_template.TaskModel):
             return self.full_converter(state, self.state_dict())[0]
         return convert.load_pretrained_backbone(self, state)
 
+    def map_height(self, key, h):
+        """The global height of the resulter's map ``key`` for inputs ``h``
+        rows high: the latent's is the backbone's output height."""
+        return self.net.backbone.out_height(h) if key == 'sslcct_ad_inp' \
+            else h
+
     def forward(self, inp):
         if len(inp) != 1:
             raise ValueError('sseg models require exactly one input, got '

@@ -4,10 +4,11 @@ for ``tests/test_torch_spatial.py``:
     python tests/_torch_spatial_worker.py JOB RANK OUT
 
 ``JOB`` is a ``torch.save``d dict: ``kind`` ('layers', 'steps', 'script'
-or 'validate'), ``world``, ``port`` and the kind's inputs (see ``run_*``);
-the rank writes what it saw to ``OUT``. The layer cases live here
-(``layer_case``, ``run_layer``) so that the test computes the one-process
-reference with the same code. Imports the port only.
+or 'many': a list of those in ``jobs``, run in turn in one process group),
+``world``, ``port`` and the kind's inputs (see ``run_*``); the rank writes
+what it saw to ``OUT``. The layer cases live here (``layer_case``,
+``run_layer``) so that the test computes the one-process reference with
+the same code. Imports the port only.
 """
 
 import contextlib
@@ -22,18 +23,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from pixelssl_tpu_torch import harness, parallel  # noqa: E402
+from pixelssl_tpu_torch.models import cct_decoders as cct  # noqa: E402
 from pixelssl_tpu_torch.models import layers  # noqa: E402
 from pixelssl_tpu_torch.models.deeplab_v2 import DeepLabV2  # noqa: E402
 from pixelssl_tpu_torch.models.discriminator import (  # noqa: E402
     FCDiscriminator)
 from pixelssl_tpu_torch.models.flaw_detector import (  # noqa: E402
     FlawDetector, IBNorm)
+from pixelssl_tpu_torch.models.pspnet import (  # noqa: E402
+    PSPModule, UpsampleDecoder)
 from pixelssl_tpu_torch.models.rotation import (  # noqa: E402
     RotationClassifier)
 from pixelssl_tpu_torch.ops import blur  # noqa: E402
 from pixelssl_tpu_torch.parallel import spatial  # noqa: E402
 from pixelssl_tpu_torch.ssl_algorithm import ssl_base  # noqa: E402
 from pixelssl_tpu_torch.ssl_algorithm import ssl_gct, ssl_s4l  # noqa: E402
+from pixelssl_tpu_torch.tasks.sreg.model import ConvBNRelu  # noqa: E402
 
 N, C, W = 2, 3, 10
 
@@ -80,9 +85,106 @@ EXTRA_LAYER_CASES = (('conv3_d24', 21), ('fd_conv4_s2', 3),
                      ('rotate', 33))
 
 
+# the layers of PSPNet, CCT's decoders and ``unet_lite``, each at heights
+# of its own: the half-pixel resize up (33 -> 65) and down (65 -> 17), the
+# pyramid's bins (1, 2, 3, 6) over 5 and 3 rows (more bins than rows), the
+# x2 shuffle at odd heights (its rows dealt anew), the nearest resize (its
+# source rows across the boundary), the PSP module and the decoder (x4) in
+# training, the 'SAME' stride-2 ConvBNRelu at an even and an odd height,
+# the guided cutout on masks whose components cross the boundary (the
+# spiral's turns among them), the masking decoders' nearest mask, VAT's
+# perturbation through a decoder and the feature drop
+MODEL_LAYER_KINDS = {
+    'resize_half_up': ('half', dict(out=65)),
+    'resize_half_down': ('half', dict(out=17)),
+    'adaptive_pool': ('bins', {}),
+    'pixel_shuffle': ('shuffle', {}),
+    'resize_nearest': ('nearest', dict(out=50)),
+    'psp_module': ('psp', {}),
+    'upsample_decoder': ('decoder', {}),
+    'same_conv_bn': ('same', {}),
+    'cutout_spiral': ('cut', {}),
+    'cutout_blobs': ('cut', {}),
+    'guided_masking': ('masking', {}),
+    'vat': ('vat', {}),
+    'feature_dropout': ('fdrop', {}),
+}
+MODEL_LAYER_CASES = (
+    ('resize_half_up', 33), ('resize_half_down', 65), ('adaptive_pool', 5),
+    ('adaptive_pool', 3), ('pixel_shuffle', 5), ('pixel_shuffle', 33),
+    ('resize_nearest', 33), ('psp_module', 5), ('psp_module', 3),
+    ('upsample_decoder', 5), ('same_conv_bn', 32), ('same_conv_bn', 33),
+    ('cutout_spiral', 41), ('cutout_blobs', 40), ('guided_masking', 33),
+    ('vat', 5), ('feature_dropout', 33))
+# the foreground masks of the cutout cases ([B,H,W] bool), set by the job
+CUT_MASKS = {}
+
+
 def layer_cases():
     return [(name, h) for name in sorted(LAYER_KINDS)
             for h in LAYER_HEIGHTS] + list(EXTRA_LAYER_CASES)
+
+
+def _model_layer_case(what, kw, name, h, rng):
+    """``layer_case`` of ``MODEL_LAYER_KINDS``."""
+    gen = torch.Generator().manual_seed(h)
+    nchw = rng.standard_normal((N, C, h, W)).astype(np.float32)
+    if what == 'half':
+        size = (kw['out'], 19 if kw['out'] > h else 7)
+        return None, (lambda x, hh: layers.resize_bilinear(
+            x, size, align_corners=False, h=hh)), nchw, 2, kw['out']
+    if what == 'bins':
+        return None, (lambda x, hh: torch.cat(
+            [layers.adaptive_avg_pool(x, b, hh).flatten(2)
+             for b in (1, 2, 3, 6)], 2)), nchw, 2, None
+    if what == 'shuffle':
+        x = rng.standard_normal((N, 8, h, W)).astype(np.float32)
+        return None, (lambda x, hh: layers.pixel_shuffle(x, 2, hh)), x, 2, \
+            2 * h
+    if what == 'nearest':
+        return None, (lambda x, hh: layers.resize_nearest(
+            x, (kw['out'], 13), hh)), nchw, 2, kw['out']
+    if what in ('psp', 'decoder'):
+        module = PSPModule(8) if what == 'psp' else UpsampleDecoder(
+            8, C, upscale=4)
+        module.init_weights(gen)
+        x = rng.standard_normal((N, 8, h, W)).astype(np.float32)
+        return module, (lambda x, hh: module(x, hh)), x, 2, \
+            h if what == 'psp' else 4 * h
+    if what == 'same':
+        module = ConvBNRelu(C, 4, stride=2)
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.normal_(m.weight, generator=gen)
+        return module, (lambda x, hh: module(x, hh)), nchw, 2, \
+            module.out_height(h)
+    if what == 'cut':
+        mask = CUT_MASKS[name]
+        logits = np.stack([~mask, mask], 1).astype(np.float32)
+        u = torch.from_numpy(rng.uniform(size=(2, mask.shape[0], 2)).astype(
+            np.float32))
+        size = (h // 2 + 1, mask.shape[2] // 2 + 1)
+        return None, (lambda x, hh: cct.guided_cutout_mask(
+            x, u[0], u[1], 0.4, size)), logits, 2, size[0]
+    if what == 'masking':
+        latent = torch.from_numpy(rng.standard_normal(
+            (N, C, 17, W)).astype(np.float32))
+        return None, (lambda x, hh: cct.guided_masking(
+            spatial.own_rows(latent, 17), x, False, 17)), nchw, 2, 17
+    if what == 'vat':
+        dec = UpsampleDecoder(C, 2, upscale=2)
+        dec.init_weights(gen)
+        d = torch.from_numpy(rng.uniform(-0.5, 0.5, (N, C, h, W)).astype(
+            np.float32))
+
+        def vat(x, hh):
+            def decode(z):
+                return dec(z, hh)
+            return decode(x + cct.vat_perturbation(
+                decode, x, spatial.own_rows(d, hh), 0.1, 2.0))
+        return dec, vat, nchw, 2, 2 * h
+    u = torch.tensor([0.8, 0.75]).reshape(N, 1, 1, 1)
+    return None, (lambda x, hh: cct.feature_dropout(x, u)), nchw, 2, h
 
 
 def _rng(name, h):
@@ -93,9 +195,12 @@ def layer_case(name, h):
     """(module or None, fn(x, h) -> out, the global input, the axis of H,
     the global output height, None where every rank gives the whole
     output) of a case; the same on every rank."""
-    what, kw = LAYER_KINDS.get(name) or LAYER_KINDS_ELSEWHERE[name]
+    what, kw = (LAYER_KINDS.get(name) or LAYER_KINDS_ELSEWHERE.get(name) or
+                MODEL_LAYER_KINDS[name])
     rng = _rng(name, h)
     torch.manual_seed(h)
+    if name in MODEL_LAYER_KINDS:
+        return _model_layer_case(what, kw, name, h, rng)
     if what == 'fd':
         # the whole flaw detector (ndf 8) in training: its classifier's one
         # output row at these heights leaves rank 1 none
@@ -190,12 +295,15 @@ def run_layer(name, h, mesh=None):
         loss = (out * weight).sum()
         if h_out is None:
             loss = spatial.whole_share(loss)
-    loss.backward()
+    if out.requires_grad:  # a mask has no gradient
+        loss.backward()
     params = {} if module is None else {
-        k: p.grad.detach().clone() for k, p in module.named_parameters()}
+        k: p.grad.detach().clone() for k, p in module.named_parameters()
+        if p.grad is not None}
     buffers = {} if module is None else {
         k: b.detach().clone() for k, b in module.named_buffers()}
-    return {'out': out.detach(), 'grad': x.grad.detach(), 'params': params,
+    grad = x.grad if x.grad is not None else torch.zeros_like(x)
+    return {'out': out.detach(), 'grad': grad.detach(), 'params': params,
             'buffers': buffers, 'h_dim': h_dim,
             'out_dim': None if h_out is None else h_dim}
 
@@ -223,16 +331,21 @@ def run_model(job, mesh):
 
 
 def run_layers(job, rank):
+    CUT_MASKS.update(job.get('masks', {}))
     mesh = parallel.make_mesh_2d(job['world'])
     out = {case: run_layer(case[0], case[1], mesh) for case in job['cases']}
-    return {'layers': out, 'model': run_model(job, mesh)}
+    return {'layers': out,
+            'model': run_model(job, mesh) if 'model' in job else None}
 
 
 def run_steps(job, rank):
     """``job['steps']`` train steps of each of ``job['runs']`` under
     ``--spatial-train job['n_spatial']`` on this rank's samples and rows of
     the run's global batch, from its states; counts the blurs of each
-    step and the strip heights they ran on."""
+    step and the strip heights they ran on. With ``job['states_dir']``
+    each rank checks that its final states equal rank 0's, and rank 0
+    alone writes them there (``<run>.pt``), one run at a time (PSPNet's
+    are 160 MB a model), in place of returning every rank's."""
     shapes = []
     local = blur._blur_local
 
@@ -247,7 +360,7 @@ def run_steps(job, rank):
             run['args'], spatial_train=job['n_spatial']))
         algo = harness.build_algorithm(args, device='cpu',
                                        iters_per_epoch=job['iters_per_epoch'])
-        for key, state in run['states'].items():
+        for key, state in run.get('states', {}).items():
             algo.modules[key].load_state_dict(state)
         (img, gt), height = spatial.shard_train_batch(
             (run['images'], run['labels']), args.labeled_batch_size,
@@ -265,8 +378,19 @@ def run_steps(job, rank):
             'lbs': algo.ctx.lbs, 'ubs': algo.ctx.ubs, 'n_dev': algo.ctx.n_dev,
             'grid': (algo.mesh.data_rank, algo.mesh.spatial_rank,
                      algo.mesh.data_size, algo.mesh.n_spatial),
-            'rows': spatial.local_rows(height, algo.mesh),
+            'rows': spatial.local_rows(height, algo.mesh), 'height': height,
             'states': {k: m.state_dict() for k, m in algo.modules.items()}}
+        if job.get('states_dir'):
+            states = results[name].pop('states')
+            flat = torch.cat([t.float().reshape(-1) for state in
+                              states.values() for t in state.values()])
+            rank0 = flat.clone()
+            dist.broadcast(rank0, src=0)
+            results[name]['equal_to_rank0'] = bool(torch.equal(rank0, flat))
+            if rank == 0:
+                torch.save(states, os.path.join(job['states_dir'],
+                                                name + '.pt'))
+            del algo, states, flat, rank0
     blur._blur_local = local
     return results
 
@@ -302,13 +426,16 @@ def run_script(job, rank):
     would set; this rank's view of the run, with the blur calls of each
     train-side visualization."""
     import pixelssl_tpu_torch
-    from pixelssl_tpu_torch.tasks import sseg
+    from pixelssl_tpu_torch.tasks import sreg, sseg
 
+    task, proxy_class = ((sreg, sreg.PixelRegressionProxy)
+                         if job.get('task') == 'sreg' else
+                         (sseg, sseg.SemanticSegmentationProxy))
     visual, undo = counting_visual_blurs()
     try:
         proxy = pixelssl_tpu_torch.run_script(
-            dict(job['config']), sseg, sseg.SemanticSegmentationProxy,
-            device='cpu', cli_override=False)
+            dict(job['config']), task, proxy_class, device='cpu',
+            cli_override=False)
     finally:
         undo()
     algo = proxy.ssl_algorithm
@@ -319,7 +446,20 @@ def run_script(job, rank):
             'val_len': len(proxy.val_loader),
             'meters': {k: m.avg for k, m in algo.meters.items()
                        if 'metric' in k or k.endswith('_loss')},
-            'states': {k: m.state_dict() for k, m in algo.modules.items()}}
+            'sums': {k: m.sum for k, m in algo.meters.items()
+                     if k.endswith('_err_sums')},
+            'states': {k: m.state_dict() for k, m in algo.modules.items()}
+            if job.get('return_states', True) else None}
+
+
+KINDS = {'layers': run_layers, 'steps': run_steps, 'script': run_script}
+
+
+def run_many(job, rank):
+    """Each job of ``job['jobs']`` in turn, in this process group (a
+    script's ``run_script`` takes the group as it finds it)."""
+    return [KINDS[sub['kind']](dict(sub, world=job['world']), rank)
+            for sub in job['jobs']]
 
 
 def main(job_path, rank, out_path):
@@ -335,8 +475,7 @@ def main(job_path, rank, out_path):
         dist.init_process_group(
             'gloo', init_method='tcp://127.0.0.1:{0}'.format(job['port']),
             rank=rank, world_size=job['world'])
-    result = {'layers': run_layers, 'steps': run_steps,
-              'script': run_script}[job['kind']](job, rank)
+    result = dict(KINDS, many=run_many)[job['kind']](job, rank)
     torch.save(result, out_path)
     dist.barrier()
     dist.destroy_process_group()

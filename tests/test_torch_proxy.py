@@ -225,34 +225,6 @@ def test_proxy_and_harness_build_the_same_algorithm(tmp_path):
             assert float(ours[key]) == float(theirs[key]), key
 
 
-# the JAX package's flags that the port parses and refuses where it does not
-# run them yet (the VOC data flags and datasets, the optimizer flags, the
-# sseg model flags, the single-card tooling flags, --visualize and
-# --distributed are ported and left this table; --spatial-val and
-# --spatial-train run SupOnly, MT, AdvSSL, S4L, GCT and CutMix on
-# DeepLab-v2, and stop on what ROADMAP A4c-3 brings: here PSPNet and CCT,
-# tests/test_torch_spatial.py has every refusal)
-UNPORTED = [
-    ('spatial_val', True, 'A4c'), ('spatial_train', 2, 'A4c'),
-]
-UNPORTED_WITH = {'spatial_val': dict(models={'model': 'pspnet'}),
-                 'spatial_train': dict(ssl_algorithm='ssl_cct',
-                                       distributed=True)}
-
-
-@pytest.mark.parametrize('flag,value,item', UNPORTED)
-def test_unported_flags_and_datasets_stop(tmp_path, flag, value, item):
-    sub = tmp_path / 'sub.txt'
-    sub.write_text('synthetic_00000\nsynthetic_00002\n')
-    config = _config(tmp_path, sub, **dict(UNPORTED_WITH[flag],
-                                           **{flag: value}))
-    with pytest.raises(logger.FatalError) as err:
-        pixelssl_tpu_torch.run_script(config, sseg,
-                                      sseg.SemanticSegmentationProxy,
-                                      device='cpu', cli_override=False)
-    assert 'ROADMAP ' + item in str(err.value)
-
-
 def test_unported_flags_parse_at_their_defaults_without_a_warning(
         monkeypatch):
     """The optimizer and sseg model flags, once refused, parse at the JAX
