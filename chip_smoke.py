@@ -274,9 +274,32 @@ Phases, each printing a line as it ends:
 39. ``--spatial-val`` on two gloo ranks as in phase 37: PSPNet/ResNet-101
     SupOnly on two 513 px images (padded to 544), and the sreg demo's
     ``unet_lite`` on two 60 px images (padded to 64), whose scored valid
-    pixels are 2 x 60 x 60 on each rank and in one process.
+    pixels are 2 x 60 x 60 on each rank and in one process;
+40. the bf16 policy (``models/layers.py``: BatchNorm applied as ``x *
+    bf16(inv) + bf16(shift)``, a bias added after the bf16 product) on
+    the card against the port on the CPU: (a) ``SyncBatchNorm`` in
+    training and in eval, and its apply from the CPU's own ``inv`` and
+    ``shift``, bit for bit; LeakyReLU(0.2) bit for bit; the biased sites
+    (ASPP, the flaw detector's and D's 4x4 convolutions, the classifier
+    convolution and the rotation head's ``fc`` with their float32 sums,
+    PSPNet's shuffle convolution) and the BatchNorms: at most
+    ``BF16_FLIP_SHARE`` of the outputs differ, by at most one bf16 ulp of
+    the output's largest magnitude (cuDNN sums in another order than
+    oneDNN); (b) the first bf16 step of MT (ResNet-10 @64) and GCT (@96)
+    on the card against the CPU from the same weights and batch: the
+    parameters' and BN statistics' mean |diff| after it within
+    ``BF16_STEP_FACTOR`` times the CPU's own spread (its step on the batch
+    with 1% of the image's elements moved by one bf16 ulp), the losses'
+    mean relative gap within ``BF16_LOSS_FACTOR`` times the spread's
+    largest; (c) MT and GCT 4+4 @321 at full width through the CUDA
+    graph: ms a step eager and replayed, the peak memory, and BatchNorm's
+    share of a replay's kernel time: every BatchNorm call of a step
+    (forward, and backward where the step differentiates it) replayed
+    alone under ``torch.profiler``, its kernel time and its number of
+    kernels, beside the same calls through PyTorch's native
+    ``batch_norm`` (cuDNN), the policy it replaced.
 
-Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33 and 35-39 print
+Phases 5, 7, 8, 10, 11, 13, 15, 17, 19, 20-23, 25, 26, 33, 35-40 print
 their step times and peak memory (the harness phases also the peak over the
 steps after the first, which leaves out cuDNN's autotuning of new shapes),
 and the run its total wall time and each phase's. Then one JSON line with
@@ -407,12 +430,12 @@ def phase_device():
     if smi.returncode != 0:
         raise RuntimeError('nvidia-smi failed: ' + smi.stderr)
     card = smi.stdout.strip()
-    say('[1/39] device: {0} x{1}; torch {2}, CUDA {3}'.format(
+    say('[1/40] device: {0} x{1}; torch {2}, CUDA {3}'.format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
-    say('[1/39] host for the VOC input path: ' + '  '.join(
+    say('[1/40] host for the VOC input path: ' + '  '.join(
         '{0} {1}'.format(k, v) for k, v in probe_host().items()))
-    say('[1/39] decoders of the VOC path: JPEG by csrc/augment.cpp '
+    say('[1/40] decoders of the VOC path: JPEG by csrc/augment.cpp '
         '(baseline Huffman, libjpeg\'s integer IDCT, upsampling and colour '
         'conversion), PNG labels by zlib; built with g++ -lz')
     return card
@@ -460,11 +483,11 @@ def phase_build():
     from pixelssl_tpu_torch.ops import blur
     t0 = time.perf_counter()
     blur.build()
-    say('[2/39] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
+    say('[2/40] built csrc/blur.cu for sm_90a in {0:.1f} s'.format(
         time.perf_counter() - t0))
     t0 = time.perf_counter()
     native.lib()
-    say('[2/39] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
+    say('[2/40] built csrc/augment.cpp with g++ in {0:.1f} s'.format(
         time.perf_counter() - t0))
 
 
@@ -479,7 +502,7 @@ def phase_kernel(seed, script_cases):
 
     one = torch.ones(1, device='cuda')
     floor_ms = graph_ms(lambda: torch.add(one, one))
-    say('[3/39] launch floor: {0:.5f} ms a call (one one-element torch.add, '
+    say('[3/40] launch floor: {0:.5f} ms a call (one one-element torch.add, '
         '{1} calls in one CUDA graph)'.format(floor_ms, GRAPH_CALLS))
     rng = np.random.default_rng(seed)
     rows = []
@@ -509,7 +532,7 @@ def phase_kernel(seed, script_cases):
         }
         row['bound_ms'], row['bound_by'] = bound(
             *blur_bound_terms_ms(n, h, w, k))
-        say('[3/39] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
+        say('[3/40] blur {12} [{0},{1},{2}] k={3}: max_abs_err {4:.3g}  '
             'kernel_ms {5:.4f}  plain_ms {6:.4f}  library_ms {7:.4f}  '
             'device_ms {8:.5f}  library_device_ms {9:.5f}  '
             'bound_ms {10:.5f} ({11})'.format(
@@ -552,7 +575,7 @@ def phase_small_reference(seed):
         if not math.isclose(got, ref, rel_tol=tol, abs_tol=1e-6):
             raise AssertionError('small GCT step: {0} on the card {1} vs '
                                  'CPU {2}'.format(key, got, ref))
-    say('[4/39] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
+    say('[4/40] small GCT step (ResNet-10, 96 px) card vs CPU agree: ' +
         '  '.join('{0} {1:.5f}/{2:.5f}'.format(k, rows['cuda'][k],
                                                 rows['cpu'][k])
                   for k in sorted(rows['cpu'])))
@@ -647,9 +670,9 @@ def phase_main_path(seed, steps):
 
     args = full_width_args('ssl_gct', seed, batch_size=GCT_BATCH[0],
                            unlabeled_batch_size=GCT_BATCH[1], **GCT_CONFIG)
-    algo, batch = build_full_width(args, '[5/39]', 'GCT')
+    algo, batch = build_full_width(args, '[5/40]', 'GCT')
     _, _, launches = timed_steps(
-        algo, batch, steps, '[5/39]', 'GCT',
+        algo, batch, steps, '[5/40]', 'GCT',
         ('l_task_loss', 'r_task_loss', 'l_fd_loss', 'r_fd_loss'))
     if launches != BLUR_LAUNCHES_PER_STEP * steps:
         raise AssertionError('blur kernel launched {0} times in {1} steps, '
@@ -713,7 +736,7 @@ def phase_small_mt_null(seed, steps):
                     raise AssertionError(
                         'small {0} step {1}: {2} on the card {3} vs CPU '
                         '{4}'.format(algo_name, s, key, got_row[key], ref))
-        say('[6/39] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
+        say('[6/40] small {0} ({1} steps, ResNet-10, 96 px) card vs CPU agree; '
             'last step: {2}'.format(algo_name, steps, '  '.join(
                 '{0} {1:.6g}/{2:.6g}'.format(k, rows['cuda'][-1][k],
                                              rows['cpu'][-1][k])
@@ -725,7 +748,7 @@ def phase_small_mt_null(seed, steps):
         harness.synthetic_batch(args, seed=seed)).items()}
     if not all(math.isfinite(v) for v in values.values()):
         raise AssertionError('noisy MT step: {0}'.format(values))
-    say('[6/39] small MT step with gaussian_noise_std 0.1 on the card: ' +
+    say('[6/40] small MT step with gaussian_noise_std 0.1 on the card: ' +
         '  '.join('{0} {1:.6g}'.format(k, v) for k, v in sorted(values.items())))
 
 
@@ -778,16 +801,16 @@ def phase_mt(seed, steps):
     """MT at full width: ``steps`` timed steps, then one profiled step."""
     args = full_width_args('ssl_mt', seed, batch_size=8,
                            unlabeled_batch_size=4, **MT_CONFIG)
-    algo, batch = build_full_width(args, '[7/39]', 'MT')
+    algo, batch = build_full_width(args, '[7/40]', 'MT')
     history, step_ms, launches = timed_steps(
-        algo, batch, steps, '[7/39]', 'MT', ('s_task_loss', 't_task_loss'))
+        algo, batch, steps, '[7/40]', 'MT', ('s_task_loss', 't_task_loss'))
     if not history[2]['cons_loss'] > 0:
         raise AssertionError('cons_loss {0} on step 2'.format(
             history[2]['cons_loss']))
     if launches != 0:
         raise AssertionError('MT launched the blur kernel {0} times'.format(
             launches))
-    profile_step(algo, batch, step_ms, '[7/39]', 'MT')
+    profile_step(algo, batch, step_ms, '[7/40]', 'MT')
     return algo
 
 
@@ -795,8 +818,8 @@ def phase_null(seed, steps):
     """SupOnly at full width, batch 4 + 0."""
     args = full_width_args('ssl_null', seed, batch_size=4,
                            unlabeled_batch_size=0, **NULL_CONFIG)
-    algo, batch = build_full_width(args, '[8/39]', 'SupOnly')
-    _, _, launches = timed_steps(algo, batch, steps, '[8/39]', 'SupOnly',
+    algo, batch = build_full_width(args, '[8/40]', 'SupOnly')
+    _, _, launches = timed_steps(algo, batch, steps, '[8/40]', 'SupOnly',
                                  ('task_loss',))
     if launches != 0:
         raise AssertionError('SupOnly launched the blur kernel {0} '
@@ -827,7 +850,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
     if sorted(losses) != ['student_loss', 'teacher_loss'] or not all(
             math.isfinite(v) for v in losses.values()):
         raise AssertionError('validation losses {0}'.format(losses))
-    say('[9/39] MT validate (2 batches of 4 @321): ' + '  '.join(
+    say('[9/40] MT validate (2 batches of 4 @321): ' + '  '.join(
         '{0} {1:.5f}'.format(k, float(v))
         for k, v in sorted(dict(scores, **losses).items())))
 
@@ -855,7 +878,7 @@ def phase_validate_checkpoint(mt_algo, null_algo, seed):
             pass
         else:
             raise AssertionError('SupOnly loaded a checkpoint of ssl_mt')
-    say('[9/39] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
+    say('[9/40] checkpoint of {0:.0f} MiB saved, loaded into a fresh MT '
         '(student and teacher equal, step {1}), refused by SupOnly'.format(
             size_mib, fresh.state.step))
 
@@ -1027,7 +1050,7 @@ def phase_script_mt():
     import statistics
     import tempfile
 
-    tag = '[10/39]'
+    tag = '[10/40]'
     with tempfile.TemporaryDirectory() as out:
         config, proxy, records, launches = run_script_phase(
             tag, SCRIPT_MT, 'ssl_mt', out)
@@ -1163,7 +1186,7 @@ def phase_script_gct():
     """GCT through the script path; returns its blur launches."""
     import tempfile
 
-    tag = '[11/39]'
+    tag = '[11/40]'
     with tempfile.TemporaryDirectory() as out:
         _, proxy, records, launches = run_script_phase(
             tag, SCRIPT_GCT, 'ssl_gct', out)
@@ -1286,7 +1309,7 @@ def phase_small_new(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, seed=seed, batch_size=4, unlabeled_batch_size=2,
             **SMALL))
-        small_card_vs_cpu('[12/39]', what, args, seed, steps)
+        small_card_vs_cpu('[12/40]', what, args, seed, steps)
 
 
 def cutmix_confidences(algo, thresholds):
@@ -1352,7 +1375,7 @@ def d_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     d_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[13/39] AdvSSL discriminator alone (forward on {0} rows and '
+    say('[13/40] AdvSSL discriminator alone (forward on {0} rows and '
         'backward to its input; forward on {1}+{2} rows, backward to its '
         'weights, Adam): {3:.3f} ms of device time in {4} launches{5}'.format(
             act.shape[0], n_fake, lbs, d_ms, sum(e.count for e in events),
@@ -1371,9 +1394,9 @@ def phase_new_full_width(seed, steps):
     for algo_name, what, config, positive in NEW_ALGOS:
         args = full_width_args(algo_name, seed, batch_size=8,
                                unlabeled_batch_size=4, **config)
-        algo, batch = build_full_width(args, '[13/39]', what)
+        algo, batch = build_full_width(args, '[13/40]', what)
         history, step_ms, launches = timed_steps(
-            algo, batch, steps, '[13/39]', what, positive)
+            algo, batch, steps, '[13/40]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1387,7 +1410,7 @@ def phase_new_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward  # the class's again
-            say('[13/39] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[13/40] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1396,7 +1419,7 @@ def phase_new_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name in ('ssl_adv', 'ssl_s4l'):
-            kernel_ms = profile_step(algo, batch, step_ms, '[13/39]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[13/40]', what)
             if algo_name == 'ssl_adv':
                 d_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
@@ -1487,7 +1510,7 @@ def phase_new_validate_checkpoint(algos, seed):
     with tempfile.TemporaryDirectory() as tmp:
         for algo_name, algo in algos.items():
             validate_and_round_trip(
-                '[14/39]', algo, full_width_args(
+                '[14/40]', algo, full_width_args(
                     algo_name, seed + 1, batch_size=8,
                     unlabeled_batch_size=4, **configs[algo_name]),
                 algos[refusers[algo_name]], seed, tmp)
@@ -1499,7 +1522,7 @@ def phase_script_new():
     ``checkpoint_1.pth``), and a rescore of the S4L run from it."""
     import tempfile
 
-    tag = '[15/39]'
+    tag = '[15/40]'
     for script, algo_name in ((SCRIPT_ADV, 'ssl_adv'),
                               (SCRIPT_S4L, 'ssl_s4l')):
         with tempfile.TemporaryDirectory() as out:
@@ -1544,7 +1567,7 @@ def phase_small_psp(seed, steps):
         args = harness.default_args(algo_name, **dict(
             config, models={'model': 'pspnet'}, seed=seed, batch_size=bs,
             unlabeled_batch_size=ubs, **SMALL))
-        small_card_vs_cpu('[16/39]', 'PSPNet ' + what, args, seed, steps)
+        small_card_vs_cpu('[16/40]', 'PSPNet ' + what, args, seed, steps)
 
 
 def decoder_share(algo, batch, step_kernel_ms):
@@ -1584,7 +1607,7 @@ def decoder_share(algo, batch, step_kernel_ms):
     work()
     events = profile_kernels(work)
     dec_ms = sum(e.self_device_time_total for e in events) / 1e3
-    say('[17/39] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
+    say('[17/40] CCT decoders alone ({0} decoders on {1} rows, latent {2}, '
         'forward and backward): {3:.3f} ms of device time in {4} '
         'launches{5}'.format(
             len(algo.specs), ubs, list(latent.shape), dec_ms,
@@ -1607,15 +1630,15 @@ def phase_psp_full_width(seed, steps):
         args = full_width_args(algo_name, seed, model='pspnet',
                                batch_size=bs, unlabeled_batch_size=ubs,
                                **config)
-        algo, batch = build_full_width(args, '[17/39]', what)
+        algo, batch = build_full_width(args, '[17/40]', what)
         task_model = algo.model.main if algo_name == 'ssl_cct' else algo.model
-        say('[17/39] {0}: task model {1:,} parameters{2}'.format(
+        say('[17/40] {0}: task model {1:,} parameters{2}'.format(
             what, count_params(task_model),
             '' if algo_name != 'ssl_cct' else
             ', {0} decoders {1:,}'.format(len(algo.model.ads),
                                           count_params(algo.model.ads))))
         _, step_ms, launches = timed_steps(
-            algo, batch, steps, '[17/39]', what, positive)
+            algo, batch, steps, '[17/40]', what, positive)
         if launches != 0:
             raise AssertionError('{0} launched the blur kernel {1} '
                                  'times'.format(what, launches))
@@ -1624,7 +1647,7 @@ def phase_psp_full_width(seed, steps):
                 algo, (args.cons_threshold, CUTMIX_THRESHOLD))
             cons_loss = float(algo.train_step(batch)['cons_loss'])
             del algo._draw_masks, algo._teacher_forward
-            say('[17/39] CutMix step {0} (untimed): cons_loss {1:.6g}, '
+            say('[17/40] CutMix step {0} (untimed): cons_loss {1:.6g}, '
                 'confidence of the mixed teacher pixels at threshold {2:g} '
                 '(this run) / {3:g} (the recipe): {4:.5f}/{5:.5f}'.format(
                     steps, cons_loss, args.cons_threshold, CUTMIX_THRESHOLD,
@@ -1633,7 +1656,7 @@ def phase_psp_full_width(seed, steps):
                 raise AssertionError('CutMix cons_loss {0} on the untimed '
                                      'step'.format(cons_loss))
         if algo_name == 'ssl_cct':
-            kernel_ms = profile_step(algo, batch, step_ms, '[17/39]', what)
+            kernel_ms = profile_step(algo, batch, step_ms, '[17/40]', what)
             decoder_share(algo, batch, kernel_ms)
         algos[algo_name] = algo
         torch.cuda.empty_cache()
@@ -1647,7 +1670,7 @@ def phase_psp_validate_checkpoint(algos, seed):
 
     with tempfile.TemporaryDirectory() as tmp:
         validate_and_round_trip(
-            '[18/39]', algos['ssl_cct'], full_width_args(
+            '[18/40]', algos['ssl_cct'], full_width_args(
                 'ssl_cct', seed + 1, model='pspnet', batch_size=4,
                 unlabeled_batch_size=2, **CCT_CONFIG),
             algos['ssl_null'], seed, tmp)
@@ -1659,7 +1682,7 @@ def phase_script_psp():
     launches counted. Returns GCT's."""
     import tempfile
 
-    tag = '[19/39]'
+    tag = '[19/40]'
     gct_launches = None
     for script, algo_name in ((SCRIPT_PSP_CCT, 'ssl_cct'),
                               (SCRIPT_PSP_GCT, 'ssl_gct')):
@@ -1950,7 +1973,7 @@ def phase_sreg():
     from pixelssl_tpu_torch.tasks import sreg
     from pixelssl_tpu_torch.utils import logger
 
-    tag = '[23/39]'
+    tag = '[23/40]'
     demo = load_sreg_demo()
     gct_launches = None
     for algo_name in ('ssl_mt', 'ssl_null', 'ssl_adv', 'ssl_gct', 'ssl_s4l'):
@@ -2048,7 +2071,7 @@ def phase_optimizers(seed, steps):
     import torch
     from pixelssl_tpu_torch import harness
 
-    tag = '[24/39]'
+    tag = '[24/40]'
     for name, flags in OPTIMIZER_CASES:
         args = harness.default_args('ssl_mt', **dict(
             MT_CONFIG, backbone='resnet10', im_size=96, num_classes=5,
@@ -2148,7 +2171,7 @@ def f32_steps(seed, steps, **flags):
                                unlabeled_batch_size=4,
                                **dict(MT_CONFIG, bf16=False, **flags))
         algo, batch = build_full_width(
-            args, '[25/39]', 'MT float32 ' + (' '.join(sorted(flags)) or
+            args, '[25/40]', 'MT float32 ' + (' '.join(sorted(flags)) or
                                               'plain'))
         losses, stats = [], None
         for s in range(steps):
@@ -2182,7 +2205,7 @@ def phase_sseg_flags(seed, steps):
     import torch
     from pixelssl_tpu_torch.models.resnet import resnet101
 
-    tag = '[25/39]'
+    tag = '[25/40]'
     runs = {}
     for label, flags in (('plain', {}), ('remat', dict(remat=True)),
                          ('bf16_opt_state', dict(bf16_opt_state=True)),
@@ -2536,7 +2559,7 @@ def phase_multi_step(seed):
     from pixelssl_tpu_torch.bench import restore, snapshot
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[26/39]'
+    tag = '[26/40]'
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     try:
@@ -2782,7 +2805,7 @@ def phase_profile_dir():
     import glob
     import tempfile
 
-    tag = '[27/39]'
+    tag = '[27/40]'
     with tempfile.TemporaryDirectory() as out:
         prof_dir = os.path.join(out, 'prof')
         config = script_config(SCRIPT_MT, out, 'ssl_mt', PROFILE_SAMPLES)
@@ -2835,7 +2858,7 @@ def phase_eager_ingest():
     80GB HBM3. Each graph run passes ``script_graph_checks``."""
     import tempfile
 
-    tag = '[28/39]'
+    tag = '[28/40]'
     runs = {}
     for label, eager, n in INGEST_RUNS:
         with tempfile.TemporaryDirectory() as out:
@@ -2879,7 +2902,7 @@ def phase_bench():
 
     from pixelssl_tpu_torch import bench
 
-    tag = '[29/39]'
+    tag = '[29/40]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(['--steps', '8', '--calls', '3', '--cudnn-benchmark'])
@@ -2908,7 +2931,7 @@ def phase_serving():
 
     from pixelssl_tpu_torch.tools import export_serving, infer_bench
 
-    tag = '[30/39]'
+    tag = '[30/40]'
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         infer_bench.main(['--model', 'deeplabv2', '--backbone', 'resnet101',
@@ -2968,7 +2991,7 @@ def phase_rescore(seed):
     from pixelssl_tpu_torch.scripts import rescore as rescore_mod
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[31/39]'
+    tag = '[31/40]'
     script = 'deeplabv2_pascalvoc_1-8_suponly.py'
     root = os.path.abspath(VOC_FIXTURE)
     args = full_width_args('ssl_null', seed, batch_size=4,
@@ -3149,7 +3172,7 @@ def phase_visualize():
     import tempfile
     from pixelssl_tpu_torch.ops import blur
 
-    tag = '[32/39]'
+    tag = '[32/40]'
     launches = {}
     for algo_name, script, n, model_ids, debug in (
             ('ssl_gct', SCRIPT_GCT, 1, ('l', 'r'), GCT_DEBUG),
@@ -3328,7 +3351,7 @@ def phase_distributed():
     the distributed run's blur launches."""
     import tempfile
 
-    tag = '[33/39]'
+    tag = '[33/40]'
     here = os.path.abspath(__file__)
     runs = {}
     for name, cmd in (
@@ -3502,7 +3525,7 @@ def phase_gloo(seed):
     import numpy as np
     import torch
 
-    tag = '[34/39]'
+    tag = '[34/40]'
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as out:
@@ -3809,7 +3832,7 @@ def phase_spatial_train(seed):
     in float32, cuDNN deterministic, two steps from the same weights at lr
     ``SPATIAL_LR`` (``spatial_cells``: the losses of both steps held).
     Returns the GCT run's blur launches on rank 0."""
-    return spatial_cells('[35/39]', 'spatial', SPATIAL_CASES, seed,
+    return spatial_cells('[35/40]', 'spatial', SPATIAL_CASES, seed,
                          SPATIAL_STEPS)['ssl_gct']
 
 
@@ -3819,7 +3842,7 @@ def phase_spatial_models(seed):
     2+2 with 11 decoders, and the sreg demo's MT (``unet_lite`` base 32
     @64), the first step's losses held. Returns the PSPNet GCT run's blur
     launches on rank 0."""
-    return spatial_cells('[38/39]', 'spatial_models', SPATIAL_MODEL_CASES,
+    return spatial_cells('[38/40]', 'spatial_models', SPATIAL_MODEL_CASES,
                          seed, SPATIAL_MODEL_HELD_STEPS)['psp_gct']
 
 
@@ -4128,7 +4151,7 @@ def phase_spatial_script():
     from pixelssl_tpu_torch.ops import blur
     from pixelssl_tpu_torch.tasks import sseg
 
-    tag = '[36/39]'
+    tag = '[36/40]'
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     try:
@@ -4362,7 +4385,7 @@ def phase_spatial_val(seed):
     SupOnly on DeepLab-v2/ResNet-101 at 1025 px (padded to 1056)
     (``spatial_val_cells``), rank 0's PNGs of each image, from the rows
     both ranks hold, against one process's (``compare_visuals``)."""
-    spatial_val_cells('[37/39]', ('deeplabv2',), seed)
+    spatial_val_cells('[37/40]', ('deeplabv2',), seed)
 
 
 def phase_spatial_val_models(seed):
@@ -4370,7 +4393,7 @@ def phase_spatial_val_models(seed):
     PSPNet/ResNet-101 at 513 px (padded to 544), and the sreg demo's
     ``unet_lite`` at 60 px (padded to 64), whose valid pixels, on each
     rank and in one process, are the unpadded ones."""
-    spatial_val_cells('[39/39]', ('pspnet', 'sreg'), seed)
+    spatial_val_cells('[39/40]', ('pspnet', 'sreg'), seed)
 
 
 def spatial_val_cells(tag, cases, seed):
@@ -4463,6 +4486,341 @@ def spatial_val_case(tag, case, seed, out):
             ' / '.join('{0:.1f}'.format(r['ms_per_image']) for r in ranks)))
 
 
+
+# ---------------------------------------------------------------------------
+# phase 40: the bf16 policy on the card
+# ---------------------------------------------------------------------------
+
+# a bf16 output of a convolution, card against CPU, may differ by one ulp
+# where cuDNN sums the window in another order than oneDNN: at most this
+# share of the outputs
+BF16_FLIP_SHARE = 0.02
+# the first bf16 step, card against CPU: the parameters' and statistics'
+# gaps within this times the CPU's own spread, the losses' within
+# BF16_LOSS_FACTOR times it (tests/test_torch_bf16.py's STEP_FACTOR and
+# SPREAD_FACTOR)
+BF16_STEP_FACTOR = 1.1
+BF16_LOSS_FACTOR = 1.25
+BF16_NUDGES = 2
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at ``x`` (float32 tensor)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def bf16_site_modules(seed):
+    """(name, module on the CPU, input shape) of phase 40's sites, their
+    weights and biases drawn from ``seed``."""
+    import torch
+    from pixelssl_tpu_torch.models import layers
+    from pixelssl_tpu_torch.models.deeplab_v2 import ASPPClassifier
+    from pixelssl_tpu_torch.models.pspnet import PixelShuffleBlock
+
+    torch.manual_seed(seed)
+    sites = [
+        ('aspp', ASPPClassifier(256, 21), (4, 256, 21, 21)),
+        ('flaw_detector conv 4x4/2', layers.Conv2d(24, 64, 4, stride=2,
+                                                   padding=1),
+         (4, 24, 96, 96)),
+        ('flaw_detector conv 4x4/1', layers.Conv2d(128, 128, 4, padding=1),
+         (4, 128, 23, 23)),
+        ('discriminator conv 4x4/2', layers.Conv2d(21, 64, 4, stride=2,
+                                                   padding=1),
+         (4, 21, 321, 321)),
+        ('classifier (float32 sum)', layers.Conv2d(
+            512, 1, 4, stride=2, padding=1, float32_out=True),
+         (4, 512, 21, 21)),
+        ('rotation fc (float32 sum)', layers.Linear(4096, 4,
+                                                    float32_out=True),
+         (16, 4096)),
+        ('pspnet shuffle conv', PixelShuffleBlock(21), (4, 21, 65, 65)),
+    ]
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _, module, _ in sites:
+            for name, p in module.named_parameters():
+                p.copy_(torch.randn(p.shape, generator=g) *
+                        (0.5 if name.endswith('bias') else 0.05))
+    return sites
+
+
+def bf16_compare(tag, what, got, ref, exact=False):
+    """Card ``got`` against CPU ``ref``: (share of differing elements, the
+    largest difference in bf16 ulps of ``ref``'s largest magnitude)."""
+    got, ref = got.float().cpu(), ref.float()
+    share = float((got != ref).float().mean())
+    worst = float((got - ref).abs().max() / bf16_ulp(ref.abs().max()))
+    say('{0} {1}: {2:.5f} of {3} elements differ, the largest by {4:.3f} '
+        'ulp of the output\'s scale'.format(tag, what, share, ref.numel(),
+                                            worst))
+    if exact and share > 0.0:
+        raise AssertionError('{0}: card and CPU differ'.format(what))
+    if share > BF16_FLIP_SHARE or worst > 1.0:
+        raise AssertionError('{0}: {1} of the outputs differ, by up to {2} '
+                             'ulp'.format(what, share, worst))
+    return share
+
+
+def phase_bf16_layers(seed, tag):
+    import copy
+    import torch
+    from pixelssl_tpu_torch.models import layers
+
+    rng = torch.Generator().manual_seed(seed)
+    for name, module, shape in bf16_site_modules(seed):
+        x = torch.randn(shape, generator=rng)
+        outs = []
+        for device in ('cpu', 'cuda'):
+            m = copy.deepcopy(module).to(device)
+            xd = x.to(device)
+            with torch.no_grad(), layers.bf16_autocast(xd):
+                outs.append(m(xd))
+        want = torch.float32 if 'float32' in name or name == 'aspp' else \
+            torch.bfloat16
+        if outs[1].dtype != want:
+            raise AssertionError('{0}: {1} on the card'.format(
+                name, outs[1].dtype))
+        bf16_compare(tag, name, outs[1], outs[0])
+
+    bn = layers.SyncBatchNorm(256)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=rng)
+        bn.bias.normal_(0.0, 0.5, generator=rng)
+        bn.running_mean.normal_(0.0, 0.5, generator=rng)
+        bn.running_var.uniform_(0.5, 1.5, generator=rng)
+    x = (torch.randn((4, 256, 41, 41), generator=rng) * 2.0 + 0.5).bfloat16()
+    for mode in ('train', 'eval'):
+        outs = []
+        for device in ('cpu', 'cuda'):
+            m = copy.deepcopy(bn).to(device).train(mode == 'train')
+            with torch.no_grad():
+                outs.append(m(x.to(device)))
+        bf16_compare(tag, 'BatchNorm ' + mode, outs[1], outs[0])
+    # the apply alone, from the CPU's statistics: two bf16 ops, exact
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+    inv = torch.rsqrt(var + bn.eps) * bn.weight.detach()
+    shift = bn.bias.detach() - mean * inv
+    outs = [xd * inv.to(xd.device, torch.bfloat16)[None, :, None, None] +
+            shift.to(xd.device, torch.bfloat16)[None, :, None, None]
+            for xd in (x, x.cuda())]
+    bf16_compare(tag, 'BatchNorm apply, the CPU\'s inv and shift', outs[1],
+                 outs[0], exact=True)
+    y = torch.randn((64, 4096), generator=rng).bfloat16()
+    bf16_compare(tag, 'LeakyReLU(0.2)', layers.leaky_relu_02(y.cuda()),
+                 layers.leaky_relu_02(y), exact=True)
+
+
+def nudged_batch(batch, seed, share=0.01):
+    """``batch`` with its images rounded to bf16 (as the first convolution
+    takes them) and ``share`` of their elements moved up by one bf16
+    ulp."""
+    import torch
+    img = batch['inp'][0].bfloat16().float()
+    g = torch.Generator().manual_seed(seed)
+    moved = torch.rand(img.shape, generator=g) < share
+    img = torch.where(moved, img + bf16_ulp(img), img)
+    return dict(batch, inp=(img,))
+
+
+def first_bf16_step(args, states, batch, device):
+    """The losses and the float32 states after one step of a fresh build
+    on ``device`` from ``states`` and ``batch`` (CPU tensors)."""
+    from pixelssl_tpu_torch import harness
+
+    algo = harness.build_algorithm(args, device=device, iters_per_epoch=2)
+    for key, module in algo.modules.items():
+        module.load_state_dict(states[key])
+    on = {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple) else v)
+          for k, v in batch.items()}
+    losses = {k: float(v) for k, v in algo.train_step(on).items()
+              if k.endswith('_loss')}
+    return losses, {key: {k: t.detach().float().cpu()
+                          for k, t in m.state_dict().items()
+                          if not k.endswith('num_batches_tracked')}
+                    for key, m in algo.modules.items()}
+
+
+def state_mean_gaps(a, b):
+    """Mean |diff| over every parameter and every BN running statistic."""
+    import torch
+    out = {}
+    for kind in ('params', 'stats'):
+        diffs = [(a[m][k] - b[m][k]).abs().reshape(-1) for m in b
+                 for k in b[m] if ('running_' in k) == (kind == 'stats')]
+        out[kind] = float(torch.cat(diffs).mean())
+    return out
+
+
+def phase_bf16_steps(seed, tag):
+    from pixelssl_tpu_torch import harness
+
+    small = dict(backbone='resnet10', num_classes=5, batch_size=4,
+                 unlabeled_batch_size=2, epochs=20, bf16=True, seed=seed)
+    cases = (('ssl_mt', 'MT', 64, dict(MT_CONFIG, lr=5e-5)),
+             ('ssl_gct', 'GCT', 96, dict(GCT_CONFIG, lr=5e-5,
+                                          dc_rampup_epochs=1)))
+    for algo_name, what, im, config in cases:
+        args = harness.default_args(algo_name, im_size=im,
+                                    **dict(small, **config))
+        init = harness.build_algorithm(args, device='cpu', iters_per_epoch=2)
+        states = {k: {n: t.clone() for n, t in m.state_dict().items()}
+                  for k, m in init.modules.items()}
+        batch = harness.synthetic_batch(args, device='cpu', seed=seed)
+        ref_losses, ref = first_bf16_step(args, states, batch, 'cpu')
+        spreads = [first_bf16_step(args, states,
+                                   nudged_batch(batch, seed + 1 + i), 'cpu')
+                   for i in range(BF16_NUDGES)]
+        losses, got = first_bf16_step(args, states, batch, 'cuda')
+
+        def rel(row):
+            return sum(abs(row[k] - v) / max(abs(v), 1e-6)
+                       for k, v in ref_losses.items()) / len(ref_losses)
+        loss_gap = rel(losses)
+        loss_spread = max(rel(row) for row, _ in spreads)
+        gaps = state_mean_gaps(got, ref)
+        spread = {kind: sum(state_mean_gaps(st, ref)[kind]
+                            for _, st in spreads) / BF16_NUDGES
+                  for kind in gaps}
+        say('{0} first bf16 {1} step (ResNet-10 @{2}), card against CPU: '
+            'losses\' mean relative gap {3:.3g} (the CPU\'s spread {4:.3g}); '
+            'parameters\' mean |diff| {5:.3g} ({6:.3g}); BN statistics\' '
+            '{7:.3g} ({8:.3g}); losses card/CPU {9}'.format(
+                tag, what, im, loss_gap, loss_spread, gaps['params'],
+                spread['params'], gaps['stats'], spread['stats'],
+                '  '.join('{0} {1:.6g}/{2:.6g}'.format(k, losses[k], v)
+                          for k, v in sorted(ref_losses.items()))))
+        if loss_gap > BF16_LOSS_FACTOR * loss_spread:
+            raise AssertionError('{0}: losses part by {1}, the CPU\'s own '
+                                 'spread {2}'.format(what, loss_gap,
+                                                     loss_spread))
+        for kind in gaps:
+            if gaps[kind] > BF16_STEP_FACTOR * spread[kind]:
+                raise AssertionError('{0}: {1} part by {2}, the CPU\'s own '
+                                     'spread {3}'.format(
+                                         what, kind, gaps[kind],
+                                         spread[kind]))
+
+
+def bn_calls(algo, batch):
+    """Every ``SyncBatchNorm`` call of one eager step of ``algo``: (the
+    module, a copy of its input, whether the step differentiates it, and
+    whether it normalised with the batch's statistics)."""
+    from pixelssl_tpu_torch.models.layers import SyncBatchNorm
+
+    calls, handles = [], []
+
+    def hook(module, args):
+        x = args[0]
+        calls.append((module, x.detach().clone(), x.requires_grad,
+                      module.training))
+    for m in algo.modules.values():
+        for sub in m.modules():
+            if isinstance(sub, SyncBatchNorm):
+                handles.append(sub.register_forward_pre_hook(hook))
+    try:
+        algo.train_step(batch)
+    finally:
+        for h in handles:
+            h.remove()
+    return calls
+
+
+def bn_replay(calls, native):
+    """A function that runs ``calls`` again, forward and backward where the
+    step differentiated them, through the port's ``SyncBatchNorm`` or, with
+    ``native``, PyTorch's ``batch_norm`` on the same bf16 input (cuDNN, the
+    policy before), each in the mode of its call; on copies of the
+    modules."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+
+    mods = [copy.deepcopy(m).train(training)
+            for m, _, _, training in calls]
+    grads = [torch.randn_like(x) for _, x, _, _ in calls]
+
+    def run():
+        outs, outgrads = [], []
+        for m, (_, x, rg, training), g in zip(mods, calls, grads):
+            x = x.detach().requires_grad_(rg)
+            with torch.set_grad_enabled(rg):
+                if native:
+                    y = F.batch_norm(x, m.running_mean, m.running_var,
+                                     m.weight, m.bias, training, m.momentum,
+                                     m.eps)
+                else:
+                    y = m(x)
+            if rg:
+                outs.append(y)
+                outgrads.append(g)
+        torch.autograd.backward(outs, outgrads)
+    return run
+
+
+def phase_bf16_full_width(seed, tag):
+    import statistics
+    import torch
+
+    rows = []
+    for algo_name, what, config in (('ssl_mt', 'MT', MT_CONFIG),
+                                    ('ssl_gct', 'GCT', GCT_CONFIG)):
+        args = full_width_args(algo_name, seed, batch_size=8,
+                               unlabeled_batch_size=4, **config)
+        held = reset_peak()
+        algo, _ = build_full_width(args, tag, what)
+        batches = multi_batches(args, seed, 2 * MULTI_N + 3)
+        _, eager_times = eager_run(algo, batches[:3])
+        _, graph_times = graph_run(algo, batches[3:], MULTI_N)
+        peak = peak_above(held)
+        eager_ms = statistics.median(eager_times[1:])
+        replay_ms = [t for kind, t in graph_times if kind == 'chunk'][1] / \
+            MULTI_N
+        step = busy_share(lambda: algo.train_steps(batches[:1]))
+        calls = bn_calls(algo, batches[0])
+        shares, kernels = {}, {}
+        for label, native in (('bf16 apply', False), ('native', True)):
+            run = bn_replay(calls, native)
+            run()
+            torch.cuda.synchronize()
+            events = profile_kernels(run)
+            shares[label] = sum(e.self_device_time_total
+                                for e in events) / 1e3
+            kernels[label] = sum(e.count for e in events)
+        step_kernel_ms = None if step is None else step[0]
+        say('{0} {1} 4+4 @321 bf16: {2:.2f} ms a step eager, {3:.2f} '
+            'replayed; peak {4:.2f} GiB; a replay\'s kernel time {5} ms; '
+            'its {6} BatchNorm calls alone {7:.3f} ms of kernel time in '
+            '{10} kernels ({8}), through the native batch_norm {9:.3f} ms '
+            'in {11}'.format(
+                tag, what, eager_ms, replay_ms, peak,
+                'not seen' if step is None else '{0:.3f}'.format(step[0]),
+                len(calls), shares['bf16 apply'],
+                'share not measured' if step_kernel_ms is None else
+                '{0:.1f}% of it'.format(100.0 * shares['bf16 apply'] /
+                                        step_kernel_ms),
+                shares['native'], kernels['bf16 apply'],
+                kernels['native']))
+        rows.append('{0} {1:.2f} ms / {2:.2f} GiB / BN {3:.3f} ms (native '
+                    '{4:.3f})'.format(what, replay_ms, peak,
+                                      shares['bf16 apply'],
+                                      shares['native']))
+        del algo, calls, batches
+        torch.cuda.empty_cache()
+    say('{0} replayed ms a step / peak / BatchNorm kernel ms a step: '
+        '{1}'.format(tag, '; '.join(rows)))
+
+
+def phase_bf16(seed):
+    tag = '[40/40]'
+    phase_bf16_layers(seed, tag)
+    phase_bf16_steps(seed, tag)
+    phase_bf16_full_width(seed, tag)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -4523,7 +4881,10 @@ def main(argv=None):
     def run(label, fn, *args, **kwargs):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        walls.append('{0} {1:.1f}'.format(label, time.perf_counter() - t0))
+        t1 = time.perf_counter()
+        walls.append('{0} {1:.1f}'.format(label, t1 - t0))
+        say('chip_smoke: phase {0} took {1:.1f} s, {2:.1f} s so far'.format(
+            label, t1 - t0, t1 - t_start))
         return out
 
     try:
@@ -4564,12 +4925,12 @@ def main(argv=None):
         run('18', phase_psp_validate_checkpoint, psp_algos, opts.seed)
         del psp_algos
         psp_launches = run('19', phase_script_psp)
-        run('20', phase_voc, '[20/39]', SCRIPT_MT, 'ssl_mt', 0)
-        voc_launches = run('21', phase_voc, '[21/39]', SCRIPT_GCT, 'ssl_gct',
+        run('20', phase_voc, '[20/40]', SCRIPT_MT, 'ssl_mt', 0)
+        voc_launches = run('21', phase_voc, '[21/40]', SCRIPT_GCT, 'ssl_gct',
                            BLUR_LAUNCHES_PER_STEP, multi=True,
                            native_augment=True, decoded_cache=True,
                            u8_transfer=True)
-        run('22', phase_voc, '[22/39]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
+        run('22', phase_voc, '[22/40]', SCRIPT_PSP_CCT, 'ssl_cct', 0)
         sreg_launches = run('23', phase_sreg)
         run('24', phase_optimizers, opts.seed, STEPS)
         run('25', phase_sseg_flags, opts.seed, STEPS)
@@ -4588,6 +4949,7 @@ def main(argv=None):
         run('37', phase_spatial_val, opts.seed)
         spatial_psp_launches = run('38', phase_spatial_models, opts.seed)
         run('39', phase_spatial_val_models, opts.seed)
+        run('40', phase_bf16, opts.seed)
     except Exception:  # report which phase failed, print no result
         traceback.print_exc()
         print('chip_smoke: FAILED', file=sys.stderr)
@@ -4707,7 +5069,7 @@ def main(argv=None):
         'spatial_psp_gct': spatial_psp_step,
         'calls': rows,
     }
-    say('chip_smoke: all 39 phases passed in {0:.1f} s (each phase\'s wall '
+    say('chip_smoke: all 40 phases passed in {0:.1f} s (each phase\'s wall '
         's: {1})'.format(time.perf_counter() - t_start, ', '.join(walls)))
     say(card)
     say(json.dumps({'kernels': [kernel]}))

@@ -84,13 +84,14 @@ def _torch_key(path, leaf_map):
 
 
 def from_jax(variables):
-    """flax variables (numpy leaves) -> torch ``state_dict``."""
+    """flax variables (numpy leaves) -> torch ``state_dict``, float32 (a bf16
+    leaf, as ``--bf16-ema`` stores the teacher, exactly so)."""
     state = {}
     params = variables['params']
     # CCT's wrapped model: the batch statistics are the task model's
     stats_prefix = ('main',) if set(params) == {'main', 'ads'} else ()
     for path, value in _flatten(params):
-        value = np.asarray(value)
+        value = np.asarray(value, dtype=np.float32)
         if path[-1] == 'kernel' and value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif path[-1] == 'kernel' and value.ndim == 2:

@@ -6,7 +6,9 @@ Four parallel 3x3 convs with bias and dilations (6,12,18,24), summed
 ``align_corners=True`` bilinear resize back to the input size in float32
 (deeplab_v2.py:32). With ``bf16`` the convolutions run under bf16 autocast
 on the card, as the JAX package's default ``--bf16`` runs them; parameters,
-BN statistics and the output stay float32.
+BN statistics and the output stay float32. In bf16 each branch adds its
+bias after the product and the branches sum in bf16, but for the last
+add, which is float32 (``models/layers.py``).
 
 Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
 of images of the context's height: the backbone and ASPP run row-sharded
@@ -36,9 +38,13 @@ class ASPPClassifier(nn.Module):
                 conv.bias.zero_()
 
     def forward(self, x, h=None):
-        out = self.conv2d_list[0](x, h)
-        for conv in self.conv2d_list[1:]:
-            out = out + conv(x, h)
+        out, *rest = [conv(x, h) for conv in self.conv2d_list]
+        for i, y in enumerate(rest, 1):
+            if i == len(rest) and y.dtype == torch.bfloat16:
+                # the JAX model casts the sum to float32, and under jax.jit
+                # its last add is then not rounded to bf16
+                out, y = out.float(), y.float()
+            out = out + y
         return out
 
 

@@ -36,7 +36,8 @@ class FCDiscriminator(nn.Module):
             setattr(self, name, Conv2d(ch, ndf * 2 ** i, 4, stride=2,
                                        padding=1))
             ch = ndf * 2 ** i
-        self.classifier = Conv2d(ch, 1, 4, stride=2, padding=1)
+        self.classifier = Conv2d(ch, 1, 4, stride=2, padding=1,
+                                 float32_out=True)
 
     def init_weights(self, generator=None):
         """LeCun normal weights and zero biases (the JAX package's flax

@@ -71,7 +71,8 @@ class FlawDetector(nn.Module):
                                        padding=1))
             setattr(self, 'ibn' + name[4:], IBNorm(ndf * mult))
             ch = ndf * mult
-        self.classifier = Conv2d(ch, 1, 4, stride=2, padding=1)
+        self.classifier = Conv2d(ch, 1, 4, stride=2, padding=1,
+                                 float32_out=True)
 
     def init_weights(self, generator=None):
         """LeCun normal weights and zero biases (the JAX package's flax

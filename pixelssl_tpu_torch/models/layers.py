@@ -11,7 +11,19 @@ NCHW.
   of weight 0 out of the statistics. In training under a process group of
   more than one rank (``sync``, a ``parallel.Mesh`` that the algorithm
   sets) it sums the float32 ``(sum, ssum, count)`` over the ranks, and
-  differentiates through that sum, as the JAX layer ``psum``s them.
+  differentiates through that sum, as the JAX layer ``psum``s them. On a
+  bf16 input (autocast) it applies the statistics as the JAX layer does
+  (its layers.py:93-104): float32 statistics folded into ``inv =
+  rsqrt(var + eps) * weight`` and ``shift = bias - mean * inv``, each
+  rounded to bf16, then ``x * inv + shift`` as two bf16 ops, in training,
+  in eval, with ``sample_weight``, ``sync`` or ``update_stats`` off. A
+  float32 input takes PyTorch's ``batch_norm`` as before.
+* ``conv2d`` / ``Conv2d`` / ``Linear``: under bf16 autocast a bias is added
+  after the product, rounded to bf16 first, as flax's ``nn.Conv`` and
+  ``nn.Dense`` with ``dtype=bf16`` add it; float32 fuses it as before.
+  Where the JAX package casts a bf16 result to float32 at once (a model's
+  last convolution or dense layer, ASPP's sum), ``jax.jit`` leaves the
+  last op before the cast unrounded; ``float32_out`` does the same.
 * ``resize_bilinear``: both ``align_corners`` conventions. ``F.interpolate``
   is the same two-tap arithmetic as the JAX interpolation matrices.
 * Row-sharded forms (``parallel.spatial``): inside ``spatial.sharded`` the
@@ -48,8 +60,8 @@ NCHW.
   ``c*r*r + i*r + j``, the JAX docstring's order); ICNR repeats each of the
   ``C`` sub-kernels ``r*r`` times along O, as the JAX initializer repeats
   along the last axis of HWIO.
-* ``leaky_relu_02``: plain LeakyReLU(0.2); the JAX custom vjp was a
-  workaround for the TPU compiler.
+* ``leaky_relu_02``: LeakyReLU(0.2); the JAX custom vjp was a workaround
+  for the TPU compiler. On bf16 the slope is the JAX layer's bf16 0.2.
 * ``lecun_normal_``: the flax ``Conv``/``Dense`` defaults the auxiliary
   modules start from.
 * ``bf16_autocast``: the bf16 autocast region of every model, its cast
@@ -98,9 +110,10 @@ class SyncBatchNorm(nn.BatchNorm2d):
         self.sync = None
 
     def forward(self, x, sample_weight=None):
-        if not self.training:
+        low = x.dtype == torch.bfloat16
+        if not low and not self.training:
             return super(SyncBatchNorm, self).forward(x)
-        if (sample_weight is None and self.sync is None and
+        if (not low and sample_weight is None and self.sync is None and
                 x.numel() != x.shape[1]):
             if self.update_stats:
                 return super(SyncBatchNorm, self).forward(x)
@@ -109,39 +122,199 @@ class SyncBatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean.clone(),
                                 self.running_var.clone(), self.weight,
                                 self.bias, True, self.momentum, self.eps)
-        # the statistics by hand: weighted rows, one value per channel
-        # (biased variance 0, unbiased 0 * 1 / 1), or summed over the ranks
-        xf = x.float()
+        if not self.training:  # bf16 here: float32 took the native path
+            return _ApplyBF16.apply(x, self.running_mean, self.running_var,
+                                    None, self.weight, self.bias, self.eps,
+                                    None)
+        s, ss, count = self._sums(x, sample_weight)
+        update = self if self.update_stats else None
+        if low:
+            return _ApplyBF16.apply(x, s, ss, count, self.weight, self.bias,
+                                    self.eps, update)
+        mean = s / count
+        var = ss / count - mean.square()
+        if update is not None:
+            self._update_running(mean, var, count)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean[None, :, None, None]) *
+                inv[None, :, None, None] +
+                self.bias[None, :, None, None]).to(x.dtype)
+
+    def _sums(self, x, sample_weight):
+        """The per-channel float32 ``(sum, sum of squares, count)`` of
+        ``x`` by hand (weighted rows, one value per channel), summed over
+        the ranks."""
         per_sample = x.shape[2] * x.shape[3]
         if sample_weight is None:
             # a fill, not a copy from the host: capturable
             count = torch.full((1,), float(x.shape[0] * per_sample),
                                dtype=torch.float32, device=x.device)
-            s = xf.sum(dim=(0, 2, 3))
-            ss = xf.square().sum(dim=(0, 2, 3))
+            w = None
         else:
             w = sample_weight.float().reshape(-1, 1, 1, 1)
             count = (sample_weight.float().sum() * per_sample).reshape(1)
-            s = (xf * w).sum(dim=(0, 2, 3))
-            ss = (xf.square() * w).sum(dim=(0, 2, 3))
+        if x.dtype == torch.bfloat16:
+            s, ss = _Sums.apply(x, w)
+        else:
+            xf = x.float()
+            if w is None:
+                s = xf.sum(dim=(0, 2, 3))
+                ss = xf.square().sum(dim=(0, 2, 3))
+            else:
+                s = (xf * w).sum(dim=(0, 2, 3))
+                ss = (xf.square() * w).sum(dim=(0, 2, 3))
         if self.sync is not None:
             c = s.shape[0]
             sums = all_sum(torch.cat([s, ss, count]), self.sync)
             s, ss, count = sums[:c], sums[c:2 * c], sums[2 * c:]
-        mean = s / count
-        var = ss / count - mean.square()
-        if self.update_stats:
+        return s, ss, count
+
+    def _update_running(self, mean, var, count):
+        """The running statistics moved by the batch's biased ``mean`` and
+        ``var`` (the unbiased variance), outside autograd: a recompute
+        under ``--remat`` (statistics left alone) must save the tensors
+        this forward saves. In place on ``.data``, as PyTorch's kernel
+        updates them: an earlier forward's backward may still hold these
+        buffers."""
+        with torch.no_grad():
             unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-            # in place on ``.data``, as PyTorch's kernel updates them: an
-            # earlier forward's backward may still hold these buffers
-            for stat, batch in ((self.running_mean, mean),
-                                (self.running_var, unbiased)):
-                stat.data.mul_(1.0 - self.momentum).add_(batch.detach(),
-                                                         alpha=self.momentum)
+            stats = [self.running_mean.data, self.running_var.data]
+            torch._foreach_mul_(stats, 1.0 - self.momentum)
+            torch._foreach_add_(stats, [mean, unbiased],
+                                alpha=self.momentum)
             self.num_batches_tracked.data.add_(1)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean[None, :, None, None]) * inv[None, :, None, None] +
-                self.bias[None, :, None, None]).to(x.dtype)
+
+
+class _Sums(torch.autograd.Function):
+    """The per-channel float32 ``(sum, sum of squares)`` of a bf16 ``x``,
+    rows weighted by ``w`` ([N, 1, 1, 1] or None), as the JAX layer sums
+    ``x.astype(float32)``. Its backward is the closed form of that
+    graph's, ``bf16(w * (g_s + 2 x g_ss))`` in one pass, and it saves
+    only the bf16 ``x`` (which the apply saves too): autograd through the
+    float32 copy would save that copy and make four passes of float32
+    maps."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xf = x.float()
+        if w is None:
+            s = xf.sum(dim=(0, 2, 3))
+            ss = xf.square_().sum(dim=(0, 2, 3))
+        else:
+            s = (xf * w).sum(dim=(0, 2, 3))
+            ss = (xf.square_() * w).sum(dim=(0, 2, 3))
+        ctx.save_for_backward(x, w)
+        return s, ss
+
+    @staticmethod
+    def backward(ctx, g_s, g_ss):
+        x, w = ctx.saved_tensors
+        g_s = g_s[None, :, None, None]
+        g2 = 2.0 * g_ss[None, :, None, None]
+        if w is None:
+            # float32 arithmetic, rounded to bf16 once on the write
+            return torch.addcmul(g_s, x, g2, out=torch.empty_like(x)), None
+        return (torch.addcmul(g_s, x, g2) * w).to(x.dtype), None
+
+
+class _ApplyBF16(torch.autograd.Function):
+    """The JAX layer's bf16 apply: float32 statistics folded into a
+    per-channel scale ``inv = rsqrt(var + eps) * weight`` and shift
+    ``bias - mean * inv``, each rounded to bf16, then ``x * inv + shift``
+    as one bf16 product and one bf16 sum. ``(a, b)``: the batch's float32
+    ``(sum, sum of squares)`` over ``count``, or with ``count`` None the
+    ``(mean, var)`` to hold (eval). ``update``: the module whose running
+    statistics the batch's move, or None.
+
+    Its backward is autograd's through these ops, written out: the bf16
+    input gradient ``g * inv``, the two per-channel bf16 sums of ``g`` and
+    ``g * x``, and the float32 chain back to ``(a, b)``, ``weight`` and
+    ``bias`` in the same roundings, equal to autograd's bit for bit on
+    the CPU. Autograd would record each per-channel op of the forward and
+    run its backward op by op: on an H100, ``chip_smoke.py`` phase 40
+    counted 42 kernels a BatchNorm call of an MT step that way, 37 this
+    way, and 4.5 through cuDNN's ``batch_norm``."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, count, weight, bias, eps, update):
+        if count is None:
+            mean, var = a, b
+        else:
+            mean = a / count
+            var = b / count - mean.square()
+            if update is not None:
+                update._update_running(mean, var, count)
+        r = torch.rsqrt(var + eps)
+        inv = r * weight
+        shift = bias - mean * inv
+        inv_b = inv.to(x.dtype)
+        ctx.save_for_backward(x, inv_b, r, inv, mean, weight, count)
+        return (x * inv_b[None, :, None, None] +
+                shift.to(x.dtype)[None, :, None, None])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, inv_b, r, inv, mean, weight, count = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = g * inv_b[None, :, None, None] if need[0] else None
+        if not any(need[1:6]):
+            return dx, None, None, None, None, None, None, None
+        d_shift = g.sum(dim=(0, 2, 3)).float()
+        d_inv = (g * x).sum(dim=(0, 2, 3)).float() - d_shift * mean
+        d_weight = d_inv * r
+        if count is None or not (need[1] or need[2]):
+            return dx, None, None, None, d_weight, d_shift, None, None
+        # rsqrt's backward as autograd writes it, then the square's and
+        # the two quotients'
+        d_var = -0.5 * (d_inv * weight) * r.pow(3)
+        d_mean = torch.add(d_shift * inv, d_var * mean, alpha=2.0).neg_()
+        return (dx, d_mean / count, d_var / count, None, d_weight, d_shift,
+                None, None)
+
+
+def bf16_active(x):
+    """Whether ``x``'s device runs the current region under bf16
+    autocast."""
+    device = x.device.type
+    return (torch.is_autocast_enabled(device) and
+            torch.get_autocast_dtype(device) == torch.bfloat16)
+
+
+def _add_bias(y, bias, float32_out):
+    """The bf16 product ``y`` plus ``bias`` rounded to bf16: a bf16 sum, or
+    with ``float32_out`` a float32 one. The JAX package casts such an
+    output to float32 at once, and under ``jax.jit`` XLA then leaves the
+    last sum unrounded."""
+    bias = bias.to(torch.bfloat16)
+    return y.float() + bias.float() if float32_out else y + bias
+
+
+def conv2d(x, weight, bias, stride, padding, dilation, groups,
+           float32_out=False):
+    """``F.conv2d``; under bf16 autocast the bias is added after the
+    product, as flax's ``nn.Conv(dtype=bf16)`` adds it: the product rounded
+    to bf16, then ``bias`` in bf16 as a sum of its own (``_add_bias``;
+    cuDNN and oneDNN would add it inside the float32 accumulation)."""
+    if bias is None or not bf16_active(x):
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    return _add_bias(F.conv2d(x, weight, None, stride, padding, dilation,
+                              groups), bias[:, None, None], float32_out)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose bias, under bf16 autocast, is added after the
+    product, as flax's ``nn.Dense(dtype=bf16)`` adds it (``_add_bias``,
+    ``float32_out`` as there)."""
+
+    def __init__(self, *args, float32_out=False, **kwargs):
+        super(Linear, self).__init__(*args, **kwargs)
+        self.float32_out = float32_out
+
+    def forward(self, x):
+        if self.bias is None or not bf16_active(x):
+            return super(Linear, self).forward(x)
+        return _add_bias(F.linear(x, self.weight), self.bias,
+                         self.float32_out)
 
 
 def same_pads(size, kernel, stride, dilation=1):
@@ -157,11 +330,19 @@ class Conv2d(nn.Conv2d):
     ``spatial.sharded`` block takes this rank's rows of a map ``h`` rows
     high and gives its rows of the output map (``out_height(h)`` rows).
     ``same=True`` (with ``padding=0``) pads each axis as flax's
-    ``'SAME'`` does, which at stride 2 is not symmetric."""
+    ``'SAME'`` does, which at stride 2 is not symmetric. ``float32_out``:
+    under bf16 autocast the output is the float32 sum of the bf16 product
+    and the bias (``_add_bias``), for a model's last convolution, whose
+    output the JAX package casts to float32."""
 
-    def __init__(self, *args, same=False, **kwargs):
+    def __init__(self, *args, same=False, float32_out=False, **kwargs):
         super(Conv2d, self).__init__(*args, **kwargs)
         self.same = same
+        self.float32_out = float32_out
+
+    def _conv_forward(self, x, weight, bias):
+        return conv2d(x, weight, bias, self.stride, self.padding,
+                      self.dilation, self.groups, self.float32_out)
 
     def row_pads(self, h):
         """(top, bottom) padding of a map ``h`` rows high."""
@@ -198,8 +379,8 @@ class Conv2d(nn.Conv2d):
                             spatial.conv_out(x.shape[3], kw, sw, pw, dw),
                             [p for p in (self.weight, self.bias)
                              if p is not None])
-        return F.conv2d(xr, self.weight, self.bias, (s, sw), (0, pw),
-                        (d, dw), self.groups)
+        return conv2d(xr, self.weight, self.bias, (s, sw), (0, pw), (d, dw),
+                      self.groups, self.float32_out)
 
 
 def _no_rows(fetched, channels, width, params=()):
@@ -425,8 +606,17 @@ def icnr_init_(weight, scale=2, generator=None):
     return weight
 
 
+# 0.2 rounded to bf16, the JAX layer's ``0.2 * x`` on a bf16 ``x``
+_SLOPE_BF16 = 0.2001953125
+
+
 def leaky_relu_02(x):
-    return F.leaky_relu(x, 0.2)
+    """LeakyReLU(0.2). On bf16 the JAX layer's: the slope rounded to bf16
+    and one bf16 product on the negative side, both ways (PyTorch's kernel
+    multiplies by 0.2 in float32 before it rounds)."""
+    if x.dtype != torch.bfloat16:
+        return F.leaky_relu(x, 0.2)
+    return torch.where(x > 0, x, x * _SLOPE_BF16)
 
 
 def lecun_normal_(layer, generator=None):

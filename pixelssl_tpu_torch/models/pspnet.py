@@ -89,8 +89,7 @@ class PixelShuffleBlock(nn.Module):
     def __init__(self, channels, scale=2):
         super(PixelShuffleBlock, self).__init__()
         self.scale = scale
-        self.conv = nn.Conv2d(channels, channels * scale * scale, 1,
-                              bias=True)
+        self.conv = Conv2d(channels, channels * scale * scale, 1, bias=True)
 
     def init_weights(self, generator=None):
         icnr_init_(self.conv.weight, self.scale, generator)

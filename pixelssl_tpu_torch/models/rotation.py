@@ -3,10 +3,12 @@
 pixelssl/ssl_algorithm/ssl_s4l.py:381-400), NCHW.
 
 Two 4x4 stride-2 conv + BN + LeakyReLU(0.2) blocks (C -> C -> 2C), a
-spatial mean, and a linear head ``fc`` over the four angles, in float32.
-The head is named ``fc``, not ``classifier``, so that the task model's 10x
-lr rule never matches it. With ``bf16`` the convolutions and the head run
-under bf16 autocast, as the JAX package's ``aux_compute_dtype`` does.
+spatial mean, and a linear head ``fc`` over the four angles; the logits
+are returned in float32. The head is named ``fc``, not ``classifier``, so
+that the task model's 10x lr rule never matches it. With ``bf16`` the
+convolutions, the mean and the head run in bf16 under autocast, as the
+JAX package's ``aux_compute_dtype`` runs them (its rotation.py:24-35: the
+``Dense`` in bf16, its bias added after the product).
 
 Inside a ``parallel.spatial.sharded`` block the input is this rank's rows
 of maps of the height that the caller passes (the context's by default;
@@ -20,8 +22,8 @@ logits.
 import torch.nn as nn
 
 from ..parallel import spatial
-from .layers import (Conv2d, SyncBatchNorm, bf16_autocast, lecun_normal_,
-                     leaky_relu_02)
+from .layers import (Conv2d, Linear, SyncBatchNorm, bf16_autocast,
+                     lecun_normal_, leaky_relu_02)
 
 
 class RotationClassifier(nn.Module):
@@ -34,7 +36,7 @@ class RotationClassifier(nn.Module):
         self.conv2 = Conv2d(in_channels, in_channels * 2, 4, stride=2,
                             padding=1)
         self.bn2 = SyncBatchNorm(in_channels * 2)
-        self.fc = nn.Linear(in_channels * 2, 4)
+        self.fc = Linear(in_channels * 2, 4, float32_out=True)
 
     def init_weights(self, generator=None):
         """LeCun normal weights and zero biases (the JAX package's flax

@@ -22,6 +22,10 @@ package's teacher and student forwards (two XLA programs, one fused with
 the backward) may differ in the last ulp where the port's are identical.
 """
 
+import ctypes
+import ctypes.util
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -63,11 +67,29 @@ def one_torch_thread():
     command runs six workers on the host's cores, and torch's default of a
     thread per core in each of them oversubscribes it (on an 8-core host
     the port's CPU tests took 188 s with six workers, 51 s with one thread
-    each)."""
+    each).
+
+    The heap is also trimmed before and after the module: JAX's
+    compilations leave gigabytes freed but held by the allocator in a
+    test worker (one that ran ``tests/test_checkpoint_all.py`` held 9.8
+    GiB, 1.9 GiB after ``malloc_trim``), the six workers share the host's
+    memory, and the host's out-of-memory killer ends the largest worker
+    mid-test when they hold more than it has."""
+    _trim_heap()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    _trim_heap()
+
+
+def _trim_heap():
+    """Freed heap pages given back to the host (glibc only)."""
+    gc.collect()
+    try:
+        ctypes.CDLL(ctypes.util.find_library('c')).malloc_trim(0)
+    except (OSError, AttributeError, TypeError):
+        pass  # not glibc
 
 
 def test_gaussian_noise_matches_jax_on_its_draws():

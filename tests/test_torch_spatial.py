@@ -93,7 +93,7 @@ from pixelssl_tpu_torch.tasks import sseg
 from pixelssl_tpu_torch.utils import logger
 
 import _torch_spatial_worker as worker
-from test_torch_mt import one_torch_thread  # noqa: F401
+from test_torch_mt import _trim_heap, one_torch_thread  # noqa: F401
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       '_torch_spatial_worker.py')
@@ -546,12 +546,22 @@ def _failures(check, *args):
     return []
 
 
+def _release_jax():
+    """The JAX programs compiled so far dropped and the heap trimmed: the
+    step job builds eight JAX algorithms in one test worker before it
+    starts its ranks, and the host's memory is shared with five other
+    workers."""
+    jax.clear_caches()
+    _trim_heap()
+
+
 def _step_verdicts(root):
     """Every run on a 1 x 2 grid and ``GRID_RUNS`` on a 2 x 2 grid, each
     against one process; ``JAX_RUNS`` against JAX; GCT's blurs."""
     runs, one, final = {}, {}, {}
     for name in STEP_RUNS:
         runs[name], one[name], final[name] = _run(name)
+    _release_jax()
     job = dict(kind='steps', n_spatial=2, runs=runs, steps=STEPS,
                iters_per_epoch=ITERS_PER_EPOCH)
     two = _spawn(job, root / 'two', 2)
